@@ -1,7 +1,8 @@
-"""The config tree is the JAX package's own: ``lgd_tpu.config`` imports no
-jax (only yaml, which the card's machine has), so the port re-exports it
-and both packages read the same keys and defaults."""
+"""The port's own copy of the config tree (lgd_tpu/config/cfg.py,
+defaults.py and distillator_defaults.py): the same keys and values, so the
+repo's YAMLs merge unchanged, except that MODEL.DEVICE defaults to "cuda"."""
 
-from lgd_tpu.config import CN, CfgNode, get_cfg
+from .cfg import CN, CfgNode
+from .defaults import get_cfg
 
 __all__ = ["CN", "CfgNode", "get_cfg"]

@@ -1,6 +1,8 @@
-"""Per-sample eval mapper: dataset dict -> numpy sample ready to pack.
-The eval branch of lgd_tpu/data/dataset_mapper.py:127-213 (no crop, flip,
-label maps or mask crops: those serve training and the teacher).
+"""Per-sample mapper: dataset dict -> numpy sample ready to pack (port of
+lgd_tpu/data/dataset_mapper.py:127-213): read, augment, transform the
+boxes, drop degenerate boxes and, in training, images left without GT. The
+extras of other paths (label maps, mask crops, box maps, strong
+augmentation) are not ported and raise.
 
 Output sample dict (numpy):
     image: (h', w', 3) float32 BGR, resized, not yet padded
@@ -15,11 +17,7 @@ from typing import Dict, Optional
 import cv2
 import numpy as np
 
-from .transforms import (
-    apply_augmentations,
-    build_test_augmentation,
-    transform_boxes,
-)
+from .transforms import apply_augmentations, build_augmentation, transform_boxes
 
 
 def read_image_bgr(file_name: str) -> np.ndarray:
@@ -30,11 +28,23 @@ def read_image_bgr(file_name: str) -> np.ndarray:
 
 
 class DatasetMapper:
-    def __init__(self, cfg):
-        self.augmentations = build_test_augmentation(cfg)
+    def __init__(self, cfg, is_train: bool = True):
+        extras = {"MODEL.MASK_ON": cfg.MODEL.MASK_ON,
+                  "MODEL.DISTILLATOR.LABEL_ENCODER.LOAD_LABELMAP":
+                      cfg.MODEL.DISTILLATOR.LABEL_ENCODER.LOAD_LABELMAP,
+                  "MODEL.STRONGER_AUGS": cfg.MODEL.STRONGER_AUGS,
+                  "MODEL.LOAD_BOXMAP": cfg.MODEL.LOAD_BOXMAP,
+                  "MODEL.LOAD_BOX_MASK": cfg.MODEL.LOAD_BOX_MASK}
+        asked = [k for k, v in extras.items() if v]
+        if asked:
+            raise NotImplementedError(f"not ported to the data path: {asked}")
+        self.is_train = is_train
+        self.filter_empty = cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS
+        self.augmentations = build_augmentation(cfg, is_train)
 
     def __call__(self, dataset_dict: Dict,
                  rng: np.random.RandomState) -> Optional[Dict]:
+        """The sample, or None for a training image left without GT."""
         d = dataset_dict
         image = read_image_bgr(d["file_name"]) if "file_name" in d else d["image"]
         image, tfms = apply_augmentations(self.augmentations, image, rng)
@@ -56,6 +66,9 @@ class DatasetMapper:
             keep = ((boxes[:, 2] > boxes[:, 0] + 1e-3)
                     & (boxes[:, 3] > boxes[:, 1] + 1e-3))
             boxes, classes = boxes[keep], classes[keep]
+
+        if self.is_train and self.filter_empty and len(boxes) == 0:
+            return None  # the loader draws the next image
 
         return {
             "image": image.astype(np.float32),

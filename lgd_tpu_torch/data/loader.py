@@ -1,25 +1,41 @@
-"""Padded eval batches on the host (the single-process eval half of
-lgd_tpu/data/loader.py).
+"""Padded batches on the host (port of lgd_tpu/data/loader.py, one
+process).
 
 Every batch is padded onto one of two fixed canvases, landscape
-(short, long) or portrait (long, short), with short = MIN_SIZE_TEST and
-long = MAX_SIZE_TEST rounded up to TPU.PAD_SIZE_DIVISIBILITY (800x1344 and
-1344x800 at the reference test size). Batches stay numpy here; the engine
-moves them to the device.
+(short, long) or portrait (long, short). For evaluation short =
+MIN_SIZE_TEST and long = MAX_SIZE_TEST, for training short =
+max(MIN_SIZE_TRAIN) and long = MAX_SIZE_TRAIN, each rounded up to
+TPU.PAD_SIZE_DIVISIBILITY (800x1344 and 1344x800 at the reference sizes).
+Batches stay numpy here; the engine moves them to the device.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+import queue
+import threading
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
 from ..structures import BatchedInstances
+from .catalog import get_dataset_dicts
 from .dataset_mapper import DatasetMapper
 
 
 def _ceil_to(x, d):
     return int(-(-x // d) * d)
+
+
+def train_canvas_shapes(cfg):
+    """(landscape, portrait) training canvases
+    (lgd_tpu/data/loader.py:37-44)."""
+    d = cfg.TPU.PAD_SIZE_DIVISIBILITY
+    if cfg.TPU.TRAIN_CANVAS:
+        h, w = (int(x) for x in cfg.TPU.TRAIN_CANVAS)
+        return (h, w), (w, h)
+    short = _ceil_to(max(cfg.INPUT.MIN_SIZE_TRAIN), d)
+    long_ = _ceil_to(cfg.INPUT.MAX_SIZE_TRAIN, d)
+    return (short, long_), (long_, short)
 
 
 def eval_canvas_shapes(cfg):
@@ -67,7 +83,7 @@ class TestLoader:
 
     def __init__(self, cfg, dataset_dicts: List[Dict], batch_size: int = 1):
         self.dataset_dicts = dataset_dicts
-        self.mapper = DatasetMapper(cfg)
+        self.mapper = DatasetMapper(cfg, is_train=False)
         self.batch_size = batch_size
         self.canvases = eval_canvas_shapes(cfg)
         self.max_instances = cfg.TPU.MAX_INSTANCES
@@ -106,3 +122,91 @@ class TestLoader:
             for i in range(n_real, self.batch_size):
                 batch["_meta"][i] = None  # padding slot
             yield batch
+
+
+class TrainingSampler:
+    """Infinite shuffled index stream from a fixed seed (reference
+    TrainingSampler, one process)."""
+
+    def __init__(self, size: int, seed: int = 2022, shuffle: bool = True):
+        self.size = size
+        self.seed = seed
+        self.shuffle = shuffle
+
+    def __iter__(self) -> Iterator[int]:
+        g = np.random.RandomState(self.seed)
+        while True:
+            order = (g.permutation(self.size) if self.shuffle
+                     else np.arange(self.size))
+            yield from order.tolist()
+
+
+def train_dataset_dicts(cfg) -> List[Dict]:
+    """DATASETS.TRAIN concatenated; with FILTER_EMPTY_ANNOTATIONS, images
+    without a non-crowd annotation are dropped (reference
+    utils/build.py:48-76)."""
+    dicts = [d for name in cfg.DATASETS.TRAIN for d in get_dataset_dicts(name)]
+    if cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS:
+        dicts = [d for d in dicts
+                 if any(a.get("iscrowd", 0) == 0
+                        for a in d.get("annotations", []))]
+    return dicts
+
+
+class TrainLoader:
+    """Infinite iterator of padded training batches of SOLVER.IMS_PER_BATCH
+    images, grouped by aspect into the landscape and portrait canvases
+    (the reference's AspectRatioGroupedDataset), mapped ahead of the
+    consumer in a thread (TPU.PREFETCH batches). The sampler's seed and the
+    augmentation stream are the JAX package's, so both draw the same
+    batches: SEED, or 2022 when SEED <= 0."""
+
+    def __init__(self, cfg, dataset_dicts: Optional[List[Dict]] = None):
+        if cfg.DATALOADER.SAMPLER_TRAIN != "TrainingSampler":
+            raise NotImplementedError(
+                f"DATALOADER.SAMPLER_TRAIN {cfg.DATALOADER.SAMPLER_TRAIN!r} "
+                f"is not ported")
+        self.dataset_dicts = (train_dataset_dicts(cfg) if dataset_dicts is None
+                              else dataset_dicts)
+        self.mapper = DatasetMapper(cfg, is_train=True)
+        self.batch_size = cfg.SOLVER.IMS_PER_BATCH
+        seed = cfg.SEED if cfg.SEED > 0 else 2022
+        self.sampler = TrainingSampler(len(self.dataset_dicts), seed=seed)
+        self.canvases = train_canvas_shapes(cfg)
+        self.max_instances = cfg.TPU.MAX_INSTANCES
+        self.aspect_grouping = cfg.DATALOADER.ASPECT_RATIO_GROUPING
+        self.prefetch = cfg.TPU.PREFETCH
+        self._rng = np.random.RandomState(seed * 1000)
+
+    def _batch_stream(self):
+        buckets: Dict[int, List] = {0: [], 1: []}
+        for idx in self.sampler:
+            s = self.mapper(self.dataset_dicts[idx], self._rng)
+            if s is None:
+                continue
+            h, w = s["image"].shape[:2]
+            b = 0 if w >= h or not self.aspect_grouping else 1
+            buckets[b].append(s)
+            if len(buckets[b]) == self.batch_size:
+                canvas = (self.canvases[b] if self.aspect_grouping
+                          else (max(self.canvases[0]),) * 2)
+                yield pack_batch(buckets[b], canvas, self.max_instances)
+                buckets[b] = []
+
+    def __iter__(self):
+        """Batches from a daemon thread; an error there is raised here."""
+        q: "queue.Queue" = queue.Queue(maxsize=max(self.prefetch, 1))
+
+        def worker():
+            try:
+                for batch in self._batch_stream():
+                    q.put(batch)
+            except Exception as e:  # surfaced on the consumer side
+                q.put(e)
+
+        threading.Thread(target=worker, daemon=True).start()
+        while True:
+            item = q.get()
+            if isinstance(item, Exception):
+                raise item
+            yield item

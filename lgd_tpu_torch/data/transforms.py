@@ -1,7 +1,9 @@
-"""Test-time host transforms (numpy + cv2): the eval half of
-lgd_tpu/data/transforms.py:18-131. ResizeShortestEdge picks the short-edge
-target the same way, and ResizeTransform resizes with cv2.INTER_LINEAR, so
-both packages hand the model the same pixels."""
+"""Host transforms (numpy + cv2), port of lgd_tpu/data/transforms.py:
+multi-scale ResizeShortestEdge and RandomFlip for training, a fixed
+ResizeShortestEdge for evaluation. They draw from the caller's
+``np.random.RandomState`` in the JAX package's order, and ResizeTransform
+resizes with cv2.INTER_LINEAR, so both packages hand the model the same
+pixels and boxes for the same seed."""
 
 from __future__ import annotations
 
@@ -45,6 +47,19 @@ class ResizeTransform(Transform):
         return coords
 
 
+class HFlipTransform(Transform):
+    def __init__(self, width):
+        self.width = width
+
+    def apply_image(self, img):
+        return np.ascontiguousarray(img[:, ::-1])
+
+    def apply_coords(self, coords):
+        coords = coords.astype(np.float64).copy()
+        coords[:, 0] = self.width - coords[:, 0]
+        return coords
+
+
 class NoOpTransform(Transform):
     def apply_image(self, img):
         return img
@@ -84,10 +99,33 @@ class ResizeShortestEdge:
         return ResizeTransform(h, w, int(new_h + 0.5), int(new_w + 0.5))
 
 
-def build_test_augmentation(cfg):
-    """The eval branch of detectron2 build_augmentation."""
-    return [ResizeShortestEdge(cfg.INPUT.MIN_SIZE_TEST,
-                               cfg.INPUT.MAX_SIZE_TEST)]
+class RandomFlip:
+    """Horizontal flip with probability ``prob``."""
+
+    def __init__(self, prob: float = 0.5):
+        self.prob = prob
+
+    def get_transform(self, img, rng: np.random.RandomState) -> Transform:
+        if rng.rand() < self.prob:
+            return HFlipTransform(img.shape[1])
+        return NoOpTransform()
+
+
+def build_augmentation(cfg, is_train: bool):
+    """detectron2 detection_utils.build_augmentation: multi-scale resize
+    and flip for training, a fixed resize for evaluation. The reference's
+    optional crop (INPUT.CROP) is not ported."""
+    if not is_train:
+        return [ResizeShortestEdge(cfg.INPUT.MIN_SIZE_TEST,
+                                   cfg.INPUT.MAX_SIZE_TEST)]
+    if cfg.INPUT.CROP.ENABLED:
+        raise NotImplementedError("INPUT.CROP is not ported")
+    augs = [ResizeShortestEdge(tuple(cfg.INPUT.MIN_SIZE_TRAIN),
+                               cfg.INPUT.MAX_SIZE_TRAIN,
+                               cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING)]
+    if cfg.INPUT.RANDOM_FLIP != "none":
+        augs.append(RandomFlip())
+    return augs
 
 
 def apply_augmentations(augs, image, rng):

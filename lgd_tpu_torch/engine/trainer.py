@@ -1,23 +1,28 @@
-"""Evaluation loop (port of lgd_tpu/engine/trainer.py:99-186, one process).
+"""Training and evaluation loops (port of lgd_tpu/engine/trainer.py, one
+process on one device).
 
-Batched inference on an explicit device, detections rescaled to the
-original image size, and COCO scoring with the JAX package's evaluator
-(lgd_tpu/evaluation/coco_eval.py imports no jax; it is given the GT dicts
-directly, so the dataset catalog, which does, is never touched).
+``do_train`` is the reference's plain loop (train.py:148-234) around
+``train_step``: a finite-loss check every step, metrics logged every 20
+iterations, periodic evaluation, and the final weights saved to
+OUTPUT_DIR/model_final.pth. ``do_test`` runs batched inference, rescales
+the detections to the original image size and scores them with the COCO
+evaluator.
 """
 
 from __future__ import annotations
 
 import logging
+import math
+import os
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from lgd_tpu.evaluation.coco_eval import COCOEvaluator
-
-from ..data import TestLoader, get_dataset_dicts
+from ..data import TestLoader, TrainLoader, get_dataset_dicts
+from ..evaluation import COCOEvaluator
+from .train_step import batch_to_device, make_train_step
 
 logger = logging.getLogger(__name__)
 
@@ -73,3 +78,53 @@ def do_test(cfg, model, device, batch_size: int = 8,
     if len(results) == 1:
         return next(iter(results.values()))
     return results
+
+
+def _check_finite(iteration: int, total: torch.Tensor):
+    t = float(total)
+    if not math.isfinite(t):
+        raise FloatingPointError(
+            f"Loss diverged at iteration {iteration}: total={t}")
+
+
+def do_train(cfg, model, device, loader: Optional[TrainLoader] = None):
+    """SOLVER.MAX_ITER steps of ``train_step`` from step 0 on ``device``.
+    Returns the final TrainState; the model holds the trained weights.
+    Resume and optimizer checkpoints are not ported yet."""
+    device = torch.device(device)
+    loader = TrainLoader(cfg) if loader is None else loader
+    init_state, train_step = make_train_step(cfg, model)
+    state = init_state()
+    max_iter = int(cfg.SOLVER.MAX_ITER)
+    logger.info("Starting training from iteration 0 on %s", device)
+
+    it = iter(loader)
+    prev = None  # (iteration, total loss) of the previous step
+    t0 = time.perf_counter()
+    for iteration in range(max_iter):
+        state, metrics = train_step(state, batch_to_device(next(it), device))
+        # checking the previous step's total, ready by now, keeps the
+        # device fed and still stops before a second update compounds a NaN
+        if prev is not None:
+            _check_finite(*prev)
+        prev = (iteration, metrics["total_loss"])
+        if (iteration + 1) % 20 == 0 or iteration == max_iter - 1:
+            host = {k: float(v) for k, v in metrics.items()}
+            logger.info("iter: %d  %s  time: %.4f s/iter", iteration + 1,
+                        "  ".join(f"{k}: {v:.4g}" for k, v in
+                                  sorted(host.items())),
+                        (time.perf_counter() - t0) / (iteration + 1))
+        if (cfg.TEST.EVAL_PERIOD > 0
+                and (iteration + 1) % cfg.TEST.EVAL_PERIOD == 0
+                and iteration != max_iter - 1):
+            do_test(cfg, model, device)
+            if cfg.MODEL.DISTILLATOR.EVAL_TEACHER:
+                do_test(cfg, model, device, eval_teacher=True)
+    if prev is not None:
+        _check_finite(*prev)
+    if cfg.OUTPUT_DIR:
+        os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+        path = os.path.join(cfg.OUTPUT_DIR, "model_final.pth")
+        torch.save(model.state_dict(), path)
+        logger.info("Saved %s", path)
+    return state

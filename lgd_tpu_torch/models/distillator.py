@@ -1,31 +1,45 @@
-"""Distillator meta-architectures (port of lgd_tpu/models/distillator.py).
+"""Distillator meta-architectures: student + DynamicTeacher + adapter (port
+of lgd_tpu/models/distillator.py; RetinaNet only so far).
 
-Only the serving path is ported: the student's inference. The teacher, the
-adapter and the distillation loss serve training and EVAL_TEACHER, and are
-thrown away at inference (README); they come with the next slices.
+``train_forward`` computes the whole LGD loss dict of one step:
+
+    student forward -> student losses
+    teacher forward (from GT + student FPN features) -> teacher features
+        scored by the student's own head with the student's loss, keys
+        suffixed '.tea'
+    distill loss: adapter(student) and teacher -> InstanceNorm ->
+        lambda * MSE
+
+Detach rules (reference base_distillator.py:52-55): teacher features are
+always detached in the distill loss; student features are detached iff
+distillation is off. The phase flag is a number, and the gate
+``x.detach() + flag * (x - x.detach())`` keeps the value and scales the
+gradient by the flag, as the JAX package's traced flag does.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
 
+from ..ops.normalization import instance_norm_2d
 from ..structures import BatchedDetections, BatchedInstances
 from .heads.retinanet import (
     AnchorCache,
     RetinaNetCT,
     init_retinanet_,
+    label_anchors,
     retinanet_inference,
+    retinanet_losses,
 )
+from .layers import Conv2d
+from .lgd.adapters import build_adapter
+from .lgd.dynamic_teacher import DynamicTeacher
 
 META_ARCHS = {}
-
-_TEACHER_LATER = ("the dynamic teacher (label encoder, attention kernel K1a) "
-                  "comes with the next slice (ROADMAP.md, queue item 1)")
-_TRAIN_LATER = ("training comes with the train step and kernel K1b "
-                "(ROADMAP.md, queue item 2)")
 
 
 def register_meta_arch(name):
@@ -37,10 +51,11 @@ def register_meta_arch(name):
 
 
 def build_model(cfg, dtype: torch.dtype = torch.bfloat16,
-                device="cpu", seed: Optional[int] = None) -> nn.Module:
-    """META_ARCH_REGISTRY equivalent. With ``seed`` the weights are drawn
-    from a ``torch.Generator`` seeded with it (on the host, so the draw
-    does not depend on the device); otherwise they are left to be loaded."""
+                device="cuda", seed: Optional[int] = None) -> nn.Module:
+    """META_ARCH_REGISTRY equivalent, on the card unless the caller names
+    another device. With ``seed`` the weights are drawn from a
+    ``torch.Generator`` seeded with it (on the host, so the draw does not
+    depend on the device); otherwise they are left to be loaded."""
     name = cfg.MODEL.META_ARCHITECTURE
     if name not in META_ARCHS:
         raise KeyError(f"Unknown META_ARCHITECTURE {name!r}; have "
@@ -51,36 +66,116 @@ def build_model(cfg, dtype: torch.dtype = torch.bfloat16,
     return model.to(device).eval()
 
 
+def gate_gradient(x: torch.Tensor, flag: float) -> torch.Tensor:
+    """The value of x with its gradient scaled by flag (0.0 or 1.0)."""
+    sg = x.detach()
+    return sg + flag * (x - sg)
+
+
+def _lecun_normal_(modules, generator: torch.Generator):
+    """Random weights like flax's default initializers: normal(0,
+    1/sqrt(fan_in)) kernels and zero biases."""
+    for m in modules:
+        if isinstance(m, (Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
+            nn.init.normal_(m.weight, 0.0, 1.0 / math.sqrt(fan_in),
+                            generator=generator)
+            nn.init.zeros_(m.bias)
+
+
 @register_meta_arch("DistillatorRetinaNet")
 class DistillatorRetinaNet(nn.Module):
-    """reference models/distillator.py:23-114, student inference only."""
+    """reference models/distillator.py:23-114. The student computes in
+    ``dtype``, as does the adapter; the teacher computes in float32."""
 
     def __init__(self, cfg, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
+        t = cfg.MODEL.DISTILLATOR.TEACHER
         self.student = RetinaNetCT(cfg, dtype=dtype)
+        self.teacher = DynamicTeacher(
+            num_classes=cfg.NUM_CLASSES,
+            channels=cfg.MODEL.FPN.OUT_CHANNELS,
+            num_heads=t.NR_TRANSFORMER_HEADS,
+            interact_pattern=t.INTERACT_PATTERN,
+            add_context_box=t.ADD_CONTEXT_BOX,
+            detach_appearance_embed=t.DETACH_APPEARANCE_EMBED,
+            use_seg_map=cfg.MODEL.DISTILLATOR.LABEL_ENCODER.LOAD_LABELMAP,
+        )
+        self.adapter = build_adapter(cfg, dtype=dtype)
+        self.distill_lambda = float(cfg.MODEL.DISTILLATOR.LAMBDA)
         self.anchors = AnchorCache(cfg)
 
     def init_weights_(self, generator: torch.Generator):
         init_retinanet_(self.student, generator)
+        _lecun_normal_(self.teacher.modules(), generator)
+        _lecun_normal_(self.adapter.modules(), generator)
 
     def _head_features(self, feats: Dict[str, torch.Tensor]):
         return [feats[f] for f in self.cfg.MODEL.RETINANET.IN_FEATURES]
 
-    def train_forward(self, *args, **kwargs):
-        raise NotImplementedError(_TRAIN_LATER)
+    def distill_loss(self, stu_feats: Dict[str, torch.Tensor],
+                     tea_feats: Dict[str, torch.Tensor],
+                     distill_flag: float) -> torch.Tensor:
+        """lambda * MSE over InstanceNorm'd, adapter-mapped features: the
+        mean over all elements of every level, as F.mse_loss of the
+        per-image concatenation."""
+        keys = sorted(set(stu_feats) & set(tea_feats))
+        total_se, total_count = 0.0, 0
+        for k in keys:
+            s = gate_gradient(stu_feats[k].float(), distill_flag)
+            t = tea_feats[k].float().detach()
+            s = instance_norm_2d(self.adapter(s).float())
+            t = instance_norm_2d(t)
+            total_se = total_se + ((s - t) ** 2).sum()
+            total_count += s.numel() // s.shape[0]
+        bs = stu_feats[keys[0]].shape[0]
+        return self.distill_lambda * total_se / (bs * total_count)
+
+    def train_forward(self, images: torch.Tensor, image_sizes: torch.Tensor,
+                      gt: BatchedInstances, distill_flag: float,
+                      loss_normalizer: torch.Tensor):
+        """One LGD training forward. images (B, 3, H, W) float32 BGR on the
+        model's device; image_sizes (B, 2) (h, w); gt on the same device.
+        Returns (losses incl. '.tea' and 'loss_distill', new normalizer):
+        the normalizer goes through the student losses, then the teacher's
+        (lgd_tpu/models/distillator.py:153-180)."""
+        padded_hw = tuple(images.shape[-2:])
+        anchors, _ = self.anchors(padded_hw, images.device)
+        _, feats = self.student(images, image_sizes)
+        tea_feats, _, _ = self.teacher(gt, feats, padded_hw)
+        # the student's head scores both pyramids in two separate passes
+        logits, deltas = self.student.predict(self._head_features(feats))
+        logits_tea, deltas_tea = self.student.predict(
+            self._head_features(tea_feats))
+        gt_labels, gt_boxes = label_anchors(self.cfg, anchors, gt)
+        losses, loss_normalizer = retinanet_losses(
+            self.cfg, logits, deltas, gt_labels, gt_boxes, anchors,
+            loss_normalizer)
+        losses_tea, loss_normalizer = retinanet_losses(
+            self.cfg, logits_tea, deltas_tea, gt_labels, gt_boxes, anchors,
+            loss_normalizer)
+        losses.update({k + ".tea": v for k, v in losses_tea.items()})
+        losses["loss_distill"] = self.distill_loss(feats, tea_feats,
+                                                   distill_flag)
+        return losses, loss_normalizer
 
     @torch.no_grad()
     def inference(self, images: torch.Tensor, image_sizes: torch.Tensor,
                   gt: Optional[BatchedInstances] = None,
                   eval_teacher: bool = False) -> BatchedDetections:
-        """Eval path (reference distillator.py:70-86): student features
-        through the student head, then NMS. images (B, 3, H, W) float32
-        BGR on the model's device; image_sizes (B, 2) int (h, w)."""
-        if eval_teacher:
-            raise NotImplementedError(_TEACHER_LATER)
-        anchors, counts = self.anchors(images.shape[-2:], images.device)
+        """Eval path (reference distillator.py:70-86): student features,
+        with ``eval_teacher`` replaced by the teacher's (which needs the
+        GT), through the student head, then NMS. images (B, 3, H, W)
+        float32 BGR on the model's device; image_sizes (B, 2) int (h, w)."""
+        padded_hw = tuple(images.shape[-2:])
+        anchors, counts = self.anchors(padded_hw, images.device)
         _, feats = self.student(images, image_sizes)
+        if eval_teacher:
+            if gt is None:
+                raise ValueError("eval_teacher needs the GT annotations")
+            feats, _, _ = self.teacher(gt, feats, padded_hw)
         logits, deltas = self.student.predict(self._head_features(feats))
         return retinanet_inference(self.cfg, logits, deltas, anchors, counts,
                                    image_sizes)

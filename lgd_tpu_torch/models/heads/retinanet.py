@@ -1,10 +1,9 @@
-"""RetinaNet student for inference (port of lgd_tpu/models/heads/retinanet.py),
-NCHW inside, with the same decomposed API: backbone + FPN, ``predict`` to
-(logits, deltas) in HWA order, and top-k -> score filter -> decode ->
-class-aware NMS inference on padded, fixed-shape tensors.
-
-Anchors come from the JAX package's numpy generator
-(lgd_tpu/models/heads/anchors.py, which imports no jax).
+"""RetinaNet student (port of lgd_tpu/models/heads/retinanet.py), NCHW
+inside, with the same decomposed API: backbone + FPN, ``predict`` to
+(logits, deltas) in HWA order, GT assignment and losses with the EMA loss
+normalizer, and top-k -> score filter -> decode -> class-aware NMS
+inference on padded, fixed-shape tensors. Anchors come from the numpy
+generator in ``anchors.py``.
 """
 
 from __future__ import annotations
@@ -17,15 +16,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from lgd_tpu.models.heads.anchors import AnchorGenerator, feature_grid_sizes
-
+from ...ops import losses as L
+from ...ops.matcher import Matcher
 from ...ops.nms import batched_nms_mask, greedy_keep_sorted, topk_detections
 from ...ops.topk import topk_flat_pairs
-from ...structures import BatchedDetections, Box2BoxTransform
+from ...structures import BatchedDetections, BatchedInstances, Box2BoxTransform
 from ...structures import boxes as box_ops
 from ..backbones.fpn import FPN
 from ..backbones.resnet import build_resnet
 from ..layers import Conv2d
+from .anchors import AnchorGenerator, feature_grid_sizes
 
 _LEVEL_STRIDES = {"p2": 4, "p3": 8, "p4": 16, "p5": 32, "p6": 64, "p7": 128}
 
@@ -172,6 +172,61 @@ def build_anchors(cfg, padded_hw) -> Tuple[np.ndarray, List[int]]:
     )
     per_level = gen(feature_grid_sizes(padded_hw, strides))
     return np.concatenate(per_level, axis=0), [len(a) for a in per_level]
+
+
+def label_anchors(cfg, anchors: torch.Tensor, gt: BatchedInstances):
+    """detectron2 RetinaNet.label_anchors: the matcher with low-quality
+    promotion, one image at a time, so that only one (M, R) IoU slab exists
+    at once (at 800x1344 and M = 100 a batch of them would be B x 80 MB).
+    anchors (R, 4). Returns gt_labels (B, R) int64 (num_classes =
+    background, -1 = ignore) and the matched GT boxes (B, R, 4)."""
+    matcher = Matcher(cfg.MODEL.RETINANET.IOU_THRESHOLDS,
+                      cfg.MODEL.RETINANET.IOU_LABELS,
+                      allow_low_quality_matches=True)
+    num_classes = cfg.MODEL.RETINANET.NUM_CLASSES
+    labels, matched = [], []
+    for boxes, classes, valid in zip(gt.boxes, gt.classes, gt.valid):
+        iou = box_ops.pairwise_iou(boxes, anchors)  # (M, R)
+        matches, match_labels = matcher(iou, valid)
+        labels.append(torch.where(
+            match_labels == 1, classes[matches],
+            torch.where(match_labels == -1, -1, num_classes)))
+        matched.append(boxes[matches])
+    return torch.stack(labels), torch.stack(matched)
+
+
+def retinanet_losses(cfg, pred_logits: torch.Tensor,
+                     pred_deltas: torch.Tensor, gt_labels: torch.Tensor,
+                     gt_boxes: torch.Tensor, anchors: torch.Tensor,
+                     loss_normalizer: torch.Tensor):
+    """detectron2 RetinaNet.losses with the EMA normalizer passed through:
+    pred_logits (B, R, K), pred_deltas (B, R, 4), gt_labels (B, R), gt_boxes
+    (B, R, 4), anchors (R, 4), loss_normalizer a float32 scalar tensor.
+    The normalizer is taken over the whole batch. Returns (losses,
+    new normalizer)."""
+    num_classes = cfg.MODEL.RETINANET.NUM_CLASSES
+    transform = Box2BoxTransform(tuple(cfg.MODEL.RETINANET.BBOX_REG_WEIGHTS))
+    valid_mask = gt_labels >= 0
+    pos_mask = valid_mask & (gt_labels != num_classes)
+    num_pos = pos_mask.sum().float()
+    new_normalizer = (0.9 * loss_normalizer
+                      + (1.0 - 0.9) * num_pos.clamp(min=1.0))
+
+    # one-hot targets without the background class
+    onehot = F.one_hot(gt_labels.clamp(0, num_classes - 1),
+                       num_classes).to(pred_logits.dtype)
+    onehot = onehot * pos_mask[..., None]
+    cls_loss = L.sigmoid_focal_loss(
+        pred_logits, onehot, alpha=cfg.MODEL.RETINANET.FOCAL_LOSS_ALPHA,
+        gamma=cfg.MODEL.RETINANET.FOCAL_LOSS_GAMMA)
+    loss_cls = (cls_loss * valid_mask[..., None]).sum()
+
+    gt_deltas = transform.get_deltas(anchors[None], gt_boxes)
+    reg_loss = L.smooth_l1_loss(pred_deltas, gt_deltas,
+                                cfg.MODEL.RETINANET.SMOOTH_L1_LOSS_BETA)
+    loss_box_reg = (reg_loss * pos_mask[..., None]).sum()
+    return ({"loss_cls": loss_cls / new_normalizer,
+             "loss_box_reg": loss_box_reg / new_normalizer}, new_normalizer)
 
 
 def retinanet_inference(cfg, pred_logits: torch.Tensor,

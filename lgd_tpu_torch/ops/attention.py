@@ -1,0 +1,165 @@
+"""Masked multi-head attention of the teacher (port of
+lgd_tpu/ops/attention.py).
+
+``masked_attention`` is ``softmax(where(valid, Q K^T * scale, -1e9)) V``
+with a per-image key-validity mask, q (B, H, Nq, D), k and v (B, H, Nk, D),
+key_valid (B, Nk) bool. On the card it is a ``torch.autograd.Function``
+whose forward is kernel K1a (``attention_fwd``, replacing the Pallas
+``_pallas_fwd_impl``) and whose backward is kernel K1b (``attention_bwd``,
+replacing ``_pallas_bwd_impl``), both hand-written CUDA in
+``csrc/attention.cu``; they run on every teacher attention call (the JAX
+package's short-sequence dispatch to XLA is not ported). On the CPU it is
+the plain version, ``masked_attention_reference``, differentiated by
+autograd. Any other device raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+_lib = None
+
+
+def _kernel():
+    global _lib
+    if _lib is None:
+        from .. import csrc
+
+        lib = csrc.load("attention")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.lgd_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                     ctypes.c_float, p]
+        lib.lgd_attn_fwd.restype = i
+        lib.lgd_attn_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                     ctypes.c_float, p]
+        lib.lgd_attn_bwd.restype = i
+        lib.lgd_attn_smem_bytes.argtypes = [i, i, i]
+        lib.lgd_attn_smem_bytes.restype = ctypes.c_longlong
+        _lib = lib
+    return _lib
+
+
+def masked_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, key_valid: torch.Tensor,
+                               scale: float) -> torch.Tensor:
+    """Plain version of K1a; its autograd gradient is the plain version of
+    K1b."""
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    logits = torch.where(key_valid[:, None, None, :], logits, -1e9)
+    attn = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", attn, v)
+
+
+def _check(q, k, v, key_valid, g=None):
+    """What the kernels take: float32 CUDA tensors q (B, H, Nq, D), k and
+    v (B, H, Nk, D), key_valid (B, Nk) bool, all contiguous on one card,
+    with N small enough for the block's shared memory."""
+    tensors = [t for t in (q, k, v, g) if t is not None]
+    if any(t.device.type != "cuda" for t in (*tensors, key_valid)):
+        raise ValueError("attention kernels take CUDA tensors")
+    if any(t.device != q.device for t in (*tensors, key_valid)):
+        raise ValueError("attention kernels: tensors on different devices")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"attention kernels take float32, got "
+                        f"{[t.dtype for t in tensors]}")
+    if key_valid.dtype != torch.bool:
+        raise TypeError(f"key_valid must be bool, got {key_valid.dtype}")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q and k must be (B, H, N, D), got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    B, H, Nq, D = q.shape
+    Nk = k.shape[2]
+    if (tuple(k.shape) != (B, H, Nk, D) or v.shape != k.shape
+            or tuple(key_valid.shape) != (B, Nk)
+            or (g is not None and g.shape != q.shape)):
+        raise ValueError(
+            f"attention kernels: shapes q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}, v {tuple(v.shape)}, key_valid "
+            f"{tuple(key_valid.shape)}"
+            + ("" if g is None else f", g {tuple(g.shape)}"))
+    if not all(t.is_contiguous() for t in (*tensors, key_valid)):
+        raise ValueError("attention kernels take contiguous tensors")
+    limit = torch.cuda.get_device_properties(
+        q.device).shared_memory_per_block_optin
+    lib = _kernel()
+    if lib.lgd_attn_smem_bytes(Nq, Nk, D) > limit:
+        n = max(Nq, Nk)
+        while n > 1 and lib.lgd_attn_smem_bytes(n, n, D) > limit:
+            n -= 1
+        raise ValueError(
+            f"attention kernels: {Nq} queries x {Nk} keys of width {D} need "
+            f"{lib.lgd_attn_smem_bytes(Nq, Nk, D)} bytes of shared memory, "
+            f"more than the card's {limit}; at most {n} tokens at D={D} "
+            f"(TPU.MAX_INSTANCES + 1 with the context box)")
+    return lib, (B, H, Nq, Nk, D)
+
+
+def attention_fwd(q, k, v, key_valid, scale: float) -> torch.Tensor:
+    """Kernel K1a: ``masked_attention_reference`` on the card. Counts each
+    launch in ``attention_fwd.launches``."""
+    lib, (B, H, Nq, Nk, D) = _check(q, k, v, key_valid)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.lgd_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               key_valid.data_ptr(), out.data_ptr(), B, H,
+                               Nq, Nk, D, float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"attention forward launch failed: cudaError {err}")
+    attention_fwd.launches += 1
+    return out
+
+
+def attention_bwd(q, k, v, key_valid, g, scale: float):
+    """Kernel K1b: (dq, dk, dv) of ``masked_attention_reference`` for the
+    output gradient g, recomputing the probabilities. Counts each launch in
+    ``attention_bwd.launches``."""
+    lib, (B, H, Nq, Nk, D) = _check(q, k, v, key_valid, g)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.lgd_attn_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               key_valid.data_ptr(), g.data_ptr(),
+                               dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                               B, H, Nq, Nk, D, float(scale), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"attention backward launch failed: cudaError {err}")
+    attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+attention_fwd.launches = 0
+attention_bwd.launches = 0
+
+
+class _MaskedAttention(torch.autograd.Function):
+    """K1a forward, K1b backward; q, k, v and key_valid are saved and the
+    probabilities recomputed, as the Pallas custom_vjp does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_valid, scale):
+        q, k, v, key_valid = (t.contiguous() for t in (q, k, v, key_valid))
+        ctx.save_for_backward(q, k, v, key_valid)
+        ctx.scale = scale
+        return attention_fwd(q, k, v, key_valid, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, key_valid = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, key_valid, g.contiguous(),
+                                   ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     key_valid: torch.Tensor, scale: float) -> torch.Tensor:
+    """The kernels for tensors on the card, the plain version for tensors
+    on the CPU."""
+    if q.device.type == "cpu":
+        return masked_attention_reference(q, k, v, key_valid, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"masked attention: unsupported device {q.device}")
+    return _MaskedAttention.apply(q, k, v, key_valid, scale)

@@ -56,13 +56,37 @@ def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
 
 
 class Box2BoxTransform:
-    """dx, dy, dw, dh parameterization (detectron2 Box2BoxTransform); only
-    the decode direction is on the inference path."""
+    """dx, dy, dw, dh parameterization (detectron2 Box2BoxTransform):
+    ``get_deltas`` encodes training targets, ``apply_deltas`` decodes."""
 
     def __init__(self, weights=(1.0, 1.0, 1.0, 1.0),
                  scale_clamp: float = SCALE_CLAMP):
         self.weights = tuple(float(x) for x in weights)
         self.scale_clamp = scale_clamp
+
+    def get_deltas(self, src_boxes: torch.Tensor,
+                   target_boxes: torch.Tensor) -> torch.Tensor:
+        """src (..., 4), target (..., 4) -> deltas (..., 4). Degenerate
+        (padded) sizes are clamped to EPS; such slots are masked out of the
+        loss downstream."""
+        src_w = src_boxes[..., 2] - src_boxes[..., 0]
+        src_h = src_boxes[..., 3] - src_boxes[..., 1]
+        src_cx = src_boxes[..., 0] + 0.5 * src_w
+        src_cy = src_boxes[..., 1] + 0.5 * src_h
+
+        tgt_w = target_boxes[..., 2] - target_boxes[..., 0]
+        tgt_h = target_boxes[..., 3] - target_boxes[..., 1]
+        tgt_cx = target_boxes[..., 0] + 0.5 * tgt_w
+        tgt_cy = target_boxes[..., 1] + 0.5 * tgt_h
+
+        wx, wy, ww, wh = self.weights
+        src_w = src_w.clamp(min=EPS)
+        src_h = src_h.clamp(min=EPS)
+        dx = wx * (tgt_cx - src_cx) / src_w
+        dy = wy * (tgt_cy - src_cy) / src_h
+        dw = ww * torch.log(tgt_w.clamp(min=EPS) / src_w)
+        dh = wh * torch.log(tgt_h.clamp(min=EPS) / src_h)
+        return torch.stack([dx, dy, dw, dh], dim=-1)
 
     def apply_deltas(self, deltas: torch.Tensor,
                      boxes: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,19 @@
 #!/usr/bin/env python
 """LGD command line for the PyTorch port, with the JAX train.py's flags:
 
-    python -m lgd_tpu_torch.train --config-file configs/....yaml --eval-only \
-        [opts KEY VALUE ...]
+    python -m lgd_tpu_torch.train --config-file configs/....yaml \
+        [--eval-only] [opts KEY VALUE ...]
 
-Only ``--eval-only`` is ported: it evaluates MODEL.WEIGHTS, which is either
-a ``.npz`` variables dump written by the JAX package (carried across by
-utils/param_bridge.py) or a ``torch.save``d state_dict. With no weights the
-model gets seeded random weights (SEED, or 0). It runs on the GPU when
-there is one, else on the CPU; convolutions run in TPU.COMPUTE_DTYPE, as
-in the JAX package.
+Without ``--eval-only`` it trains SOLVER.MAX_ITER steps (``do_train``),
+then evaluates the student and, with MODEL.DISTILLATOR.EVAL_TEACHER, the
+teacher's features through the student's head. ``--eval-only`` evaluates
+MODEL.WEIGHTS alone. MODEL.WEIGHTS is either a ``.npz`` variables dump
+written by the JAX package (student, teacher and adapter, carried across
+by utils/param_bridge.py) or a ``torch.save``d state_dict; with no weights
+the model gets seeded random weights (SEED, or 0). It runs on
+MODEL.DEVICE, the card by default (``MODEL.DEVICE cpu`` for the CPU);
+convolutions of the student run in TPU.COMPUTE_DTYPE, as in the JAX
+package. Resume is not ported yet.
 """
 
 from __future__ import annotations
@@ -65,40 +69,43 @@ def setup(args):
 
 
 def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
-    """MODEL.WEIGHTS: a JAX ``.npz`` dump (teacher and adapter entries are
-    dropped: inference does not use them) or a torch state_dict file."""
+    """MODEL.WEIGHTS: a JAX ``.npz`` dump or a torch state_dict file; every
+    entry must map onto the model."""
     from lgd_tpu_torch.utils.param_bridge import load_flax_weights
 
     if path.endswith(".npz"):
         with np.load(path) as raw:
             flat = {k: raw[k] for k in raw.files}
-        return load_flax_weights(model, flat, ignore=("teacher", "adapter"))
+        return load_flax_weights(model, flat)
     model.load_state_dict(torch.load(path, map_location="cpu",
                                      weights_only=True), strict=True)
     return model
 
 
 def main(args):
-    from lgd_tpu_torch.engine.trainer import do_test
+    from lgd_tpu_torch.engine.trainer import do_test, do_train
     from lgd_tpu_torch.models.distillator import build_model
 
-    if not args.eval_only:
-        raise NotImplementedError(
-            "training comes with the train step and kernel K1b (ROADMAP.md, "
-            "queue item 2); run with --eval-only")
+    if args.resume:
+        raise NotImplementedError("--resume comes with the checkpointer "
+                                  "(ROADMAP.md, port queue item 3)")
     cfg = setup(args)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = torch.device(cfg.MODEL.DEVICE)
     dtype = (torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16"
              else torch.float32)
     if cfg.MODEL.WEIGHTS:
-        model = load_weights(build_model(cfg, dtype=dtype), cfg.MODEL.WEIGHTS)
+        model = load_weights(build_model(cfg, dtype=dtype, device=device),
+                             cfg.MODEL.WEIGHTS)
     else:
         logging.getLogger(__name__).warning(
-            "MODEL.WEIGHTS is empty: evaluating seeded random weights")
-        model = build_model(cfg, dtype=dtype, seed=max(cfg.SEED, 0))
-    model = model.to(device)
+            "MODEL.WEIGHTS is empty: starting from seeded random weights")
+        model = build_model(cfg, dtype=dtype, device=device,
+                            seed=max(cfg.SEED, 0))
+    if not args.eval_only:
+        do_train(cfg, model, device)
     if cfg.MODEL.DISTILLATOR.EVAL_TEACHER:
-        do_test(cfg, model, device, eval_teacher=True)  # raises: next slice
+        logging.getLogger(__name__).info("Evaluating the teacher")
+        do_test(cfg, model, device, eval_teacher=True)
     return do_test(cfg, model, device)
 
 

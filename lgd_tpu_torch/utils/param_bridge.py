@@ -7,16 +7,20 @@ lgd_tpu/engine/checkpoint.py:71-93): ``params/<module path>/<leaf>`` and
 submodule names, so the module path maps one to one onto the state_dict
 name, and only the leaves change:
 
-- ``params/.../kernel`` (HWIO) -> ``....weight`` (OIHW, transpose(3, 2, 0, 1));
+- ``params/.../kernel`` of a convolution (HWIO) -> ``....weight`` (OIHW,
+  transpose(3, 2, 0, 1));
+- ``params/.../kernel`` of a Dense layer (in, out) -> ``....weight`` of an
+  ``nn.Linear`` (out, in);
 - ``params/.../bias`` -> ``....bias``;
 - ``frozen/.../{scale,bias,mean,var}`` -> the FrozenBatchNorm buffers.
 
-Every key must map, on both sides: a key left over raises.
+The student, the teacher and the adapter all map. Every key must map, on
+both sides: a key left over raises.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Mapping, Tuple
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -47,35 +51,32 @@ def torch_key(flax_key: str) -> str:
     return ".".join(path + [leaf])
 
 
+def _kernel_axes(flax_key: str, ndim: int):
+    """The transpose that takes a flax kernel to the torch weight."""
+    if flax_key.endswith("/kernel"):
+        return {4: (3, 2, 0, 1), 2: (1, 0)}.get(ndim)
+    return None
+
+
 def torch_shape(flax_key: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
-    if flax_key.endswith("/kernel") and len(shape) == 4:
-        h, w, i, o = shape
-        return (o, i, h, w)
-    return tuple(shape)
+    axes = _kernel_axes(flax_key, len(shape))
+    return tuple(shape[a] for a in axes) if axes else tuple(shape)
 
 
 def _to_torch(flax_key: str, arr: np.ndarray) -> np.ndarray:
     arr = np.asarray(arr)
-    if flax_key.endswith("/kernel") and arr.ndim == 4:
-        arr = arr.transpose(3, 2, 0, 1)
-    return np.ascontiguousarray(arr)
+    axes = _kernel_axes(flax_key, arr.ndim)
+    return np.ascontiguousarray(arr.transpose(axes) if axes else arr)
 
 
-def state_dict_from_flax(flat: Mapping[str, np.ndarray], model: torch.nn.Module,
-                         ignore: Iterable[str] = ()) -> Dict[str, torch.Tensor]:
-    """The model's full state_dict from a flat JAX variables dict.
-
-    ``ignore`` names top-level flax modules that the dump holds and the port
-    model does not (the teacher and adapter of a distillator, which
-    inference throws away); their keys are dropped. Any other key without a
-    counterpart, any model entry left unfilled, and any shape mismatch
-    raises."""
-    ignore = tuple(ignore)
+def state_dict_from_flax(flat: Mapping[str, np.ndarray],
+                         model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's full state_dict from a flat JAX variables dict. A key
+    without a counterpart, a model entry left unfilled, and a shape mismatch
+    all raise."""
     want = model.state_dict()
     out, unmapped = {}, []
     for key, arr in flat.items():
-        if key.split("/")[1] in ignore:
-            continue
         try:
             tk = torch_key(key)
         except KeyError:
@@ -100,8 +101,7 @@ def state_dict_from_flax(flat: Mapping[str, np.ndarray], model: torch.nn.Module,
     return out
 
 
-def load_flax_weights(model: torch.nn.Module, flat: Mapping[str, np.ndarray],
-                      ignore: Iterable[str] = ()) -> torch.nn.Module:
-    model.load_state_dict(state_dict_from_flax(flat, model, ignore),
-                          strict=True)
+def load_flax_weights(model: torch.nn.Module,
+                      flat: Mapping[str, np.ndarray]) -> torch.nn.Module:
+    model.load_state_dict(state_dict_from_flax(flat, model), strict=True)
     return model

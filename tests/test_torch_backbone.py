@@ -9,7 +9,7 @@ from torch_parity import (
     jax_model,
     random_weights,
     retinanet_cfg,
-    student_shapes,
+    variable_shapes,
     unflatten,
 )
 
@@ -21,9 +21,9 @@ from lgd_tpu_torch.utils import param_bridge
 def r18():
     cfg = retinanet_cfg(depth=18)
     jm = jax_model(cfg)
-    flat = random_weights(student_shapes(jm), seed=1)
+    flat = random_weights(variable_shapes(jm), seed=1)
     tm = param_bridge.load_flax_weights(
-        build_model(cfg, dtype=torch.float32), flat)
+        build_model(cfg, dtype=torch.float32, device="cpu"), flat)
     return cfg, jm, flat, tm
 
 
@@ -56,13 +56,13 @@ def test_resnet_fpn_match_jax(r18):
 
 
 def test_bridge_covers_r50_full_width():
-    """Every flax leaf of the R-50 FPN RetinaNet student (256-channel FPN,
-    9 anchors, 80 classes) maps to exactly one port state_dict entry of the
-    same shape, and every entry is covered. Shapes only: nothing is
-    computed."""
+    """Every flax leaf of the R-50 FPN RetinaNet distillator (student with a
+    256-channel FPN, 9 anchors and 80 classes; 8-head teacher; adapter) maps
+    to exactly one port state_dict entry of the same shape, and every entry
+    is covered. Shapes only: nothing is computed."""
     cfg = retinanet_cfg(depth=50)
-    shapes = student_shapes(jax_model(cfg))
-    sd = build_model(cfg, dtype=torch.float32).state_dict()
+    shapes = variable_shapes(jax_model(cfg))
+    sd = build_model(cfg, dtype=torch.float32, device="cpu").state_dict()
 
     mapped = {}
     for key, shape in shapes.items():
@@ -86,13 +86,15 @@ def test_bridge_raises_on_unmapped_keys(r18):
     short.pop("frozen/student/bottom_up/res2_0/conv1_norm/var")
     with pytest.raises(ValueError, match="missing"):
         param_bridge.state_dict_from_flax(short, tm)
-    # the teacher and adapter of a full distillator dump are dropped only
-    # when named
+    # the teacher and adapter of the dump map like the student; a teacher
+    # key the port does not have still raises
     teacher = dict(flat)
     teacher["params/teacher/encoder/kernel"] = np.zeros((4, 4))
     with pytest.raises(ValueError, match="unmapped"):
         param_bridge.state_dict_from_flax(teacher, tm)
-    param_bridge.state_dict_from_flax(teacher, tm, ignore=("teacher",))
+    sd = param_bridge.state_dict_from_flax(flat, tm)
+    assert any(k.startswith("teacher.") for k in sd)
+    assert any(k.startswith("adapter.") for k in sd)
 
 
 def test_frozen_bn_folds_in_float32_then_casts():

@@ -1,6 +1,7 @@
-"""Kernel K2 (lgd_tpu_torch/csrc/nms.cu) on the card, against its plain
-PyTorch version. Imports no JAX, so it runs on a machine that has only the
-port's dependencies:
+"""Kernels K2 (lgd_tpu_torch/csrc/nms.cu) and K1a/K1b
+(lgd_tpu_torch/csrc/attention.cu) on the card, against their plain PyTorch
+versions. Imports no JAX, so it runs on a machine that has only the port's
+dependencies:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
@@ -10,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from lgd_tpu_torch.ops import nms
+from lgd_tpu_torch.ops import attention, nms
 
 
 @pytest.fixture
@@ -78,3 +79,55 @@ def test_kernel_wrapper_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError):
         nms.greedy_keep_sorted(torch.zeros((1, 8, 8), device=cuda_device)
                                [..., ::2], valid, 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N", [(1, 2), (16, 33), (3, 101)])
+def test_attention_kernels_match_plain_version(cuda_device, B, N):
+    """K1a forward and K1b gradients through ``masked_attention`` against
+    the plain version and its autograd gradient, float32 with TF32 off:
+    1e-5 (forward) and 1e-4 (gradients) of the largest value. Keys are
+    padded; image 0 has one valid key, the last image none."""
+    H, D = 8, 32
+    g = torch.Generator().manual_seed(B * 1000 + N)
+    q, k, v, grad = (torch.randn(B, H, N, D, generator=g).to(cuda_device)
+                     for _ in range(4))
+    valid = (torch.rand(B, N, generator=g) > 0.3).to(cuda_device)
+    valid[0] = False
+    valid[0, 0] = True
+    valid[-1] = False
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs = []
+        for fn in (attention.masked_attention,
+                   attention.masked_attention_reference):
+            qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = fn(*qkv, valid, 1.0 / D ** 0.5)
+            outs.append([out, *torch.autograd.grad(out, qkv, grad)])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    before = attention.attention_fwd.launches, attention.attention_bwd.launches
+    (got, *got_g), (want, *want_g) = outs
+    torch.cuda.synchronize()
+    for a, b, tol in zip([got, *got_g], [want, *want_g], (1e-5, 1e-4, 1e-4,
+                                                          1e-4)):
+        assert (a - b).abs().max() <= tol * b.abs().max()
+    attention.masked_attention(q, k, v, valid, 0.5)
+    assert attention.attention_fwd.launches == before[0] + 1
+
+
+@pytest.mark.cuda
+def test_attention_wrapper_rejects_what_it_does_not_take(cuda_device):
+    q = torch.zeros((1, 2, 8, 32), device=cuda_device)
+    valid = torch.ones((1, 8), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(TypeError):
+        attention.attention_fwd(q.half(), q, q, valid, 0.5)
+    with pytest.raises(ValueError):
+        attention.attention_fwd(q, q[:, :1], q, valid, 0.5)
+    with pytest.raises(ValueError):
+        attention.attention_fwd(q.transpose(2, 3), q, q, valid, 0.5)
+    big = torch.zeros((1, 1, 4096, 32), device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        attention.attention_fwd(big, big, big, torch.ones(
+            (1, 4096), dtype=torch.bool, device=cuda_device), 0.5)

@@ -13,7 +13,7 @@ from torch_parity import (
     jax_model,
     random_weights,
     retinanet_cfg,
-    student_shapes,
+    variable_shapes,
     unflatten,
 )
 
@@ -32,8 +32,9 @@ def test_distillator_inference_matches_jax():
     about 2e-4 relative, tests/test_torch_backbone.py)."""
     cfg = retinanet_cfg(opts=["TEST.DETECTIONS_PER_IMAGE", 50])
     jm = jax_model(cfg)
-    flat = random_weights(student_shapes(jm), seed=2)
-    tm = load_flax_weights(build_model(cfg, dtype=torch.float32), flat)
+    flat = random_weights(variable_shapes(jm), seed=2)
+    tm = load_flax_weights(build_model(cfg, dtype=torch.float32,
+                                       device="cpu"), flat)
     rng = np.random.RandomState(1)
     images = (rng.rand(2, 96, 128, 3) * 255).astype(np.float32)
     sizes = np.asarray([[96, 128], [80, 90]], np.int32)
@@ -104,40 +105,60 @@ def test_do_test_returns_coco_metrics():
                               "INPUT.MAX_SIZE_TEST", 96,
                               "MODEL.RETINANET.SCORE_THRESH_TEST", 0.0,
                               "DATASETS.TEST", ("synthetic_mini",)])
-    model = build_model(cfg, dtype=torch.float32, seed=0)
+    model = build_model(cfg, dtype=torch.float32, device="cpu", seed=0)
     res = do_test(cfg, model, "cpu", batch_size=8)
     for key in ("AP", "AP50", "AP75", "APm", "APl", "AR@100"):
         assert key in res["bbox"] and np.isfinite(res["bbox"][key])
 
 
 def test_eval_teacher_and_training_raise():
-    cfg = retinanet_cfg()
-    model = build_model(cfg, dtype=torch.float32, seed=0)
-    x = torch.zeros(1, 3, 64, 64)
-    s = torch.tensor([[64, 64]])
-    with pytest.raises(NotImplementedError, match="queue item 1"):
+    """EVAL_TEACHER inference and ``train_forward`` run on the CPU (they
+    raised before the teacher was ported); what still raises is a DCN
+    backbone, and the teacher without the GT it is built from."""
+    from lgd_tpu_torch.structures import BatchedInstances
+
+    cfg = retinanet_cfg(opts=["TPU.MAX_INSTANCES", 4])
+    model = build_model(cfg, dtype=torch.float32, device="cpu", seed=0)
+    x = torch.rand(2, 3, 64, 64) * 255
+    s = torch.tensor([[64, 64], [50, 60]])
+    gt = BatchedInstances.from_lists([np.asarray([[4.0, 6.0, 40.0, 30.0]]),
+                                      np.zeros((0, 4))],
+                                     [np.asarray([5]), np.zeros(0)], 4)
+    dets = model.inference(x, s, gt, eval_teacher=True)
+    assert dets.boxes.shape == (2, 100, 4)
+    assert torch.isfinite(dets.scores).all()
+    losses, norm = model.train_forward(x, s, gt, 1.0, torch.tensor(100.0))
+    assert sorted(losses) == ["loss_box_reg", "loss_box_reg.tea", "loss_cls",
+                              "loss_cls.tea", "loss_distill"]
+    assert all(torch.isfinite(v) for v in losses.values())
+    assert 81.0 < float(norm) < 100.0  # two EMA updates from 100
+    with pytest.raises(ValueError, match="GT"):
         model.inference(x, s, eval_teacher=True)
-    with pytest.raises(NotImplementedError, match="queue item 2"):
-        model.train_forward(x, s)
     dcn = retinanet_cfg(opts=["MODEL.RESNETS.DEFORM_ON_PER_STAGE",
                               [False, True, True, True]])
     with pytest.raises(NotImplementedError, match="DCN"):
-        build_model(dcn)
+        build_model(dcn, device="cpu")
+
+
+def test_build_model_defaults_to_the_card():
+    """The entry points run on the card unless the caller names the CPU:
+    without a card, the default device raises instead of falling back."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    with pytest.raises((AssertionError, RuntimeError)):
+        build_model(retinanet_cfg(), dtype=torch.float32)
 
 
 def test_eval_only_cli_evaluates_a_jax_npz_dump(tmp_path):
     """``python -m lgd_tpu_torch.train --eval-only`` on the in-repo mini
-    config, evaluating a ``.npz`` written by the JAX package's own
-    save_variables_npz; the dump's teacher entries are dropped, as
-    inference does not use them."""
-    import jax.numpy as jnp
-
+    config, on the CPU, evaluating a ``.npz`` written by the JAX package's
+    own save_variables_npz: student, teacher and adapter all load, and the
+    YAML's EVAL_TEACHER evaluates the teacher's features too."""
     from lgd_tpu.engine.checkpoint import save_variables_npz
     from lgd_tpu_torch import train as ttrain
 
-    flat = random_weights(student_shapes(jax_model(retinanet_cfg())), seed=3)
+    flat = random_weights(variable_shapes(jax_model(retinanet_cfg())), seed=3)
     tree = unflatten(flat)
-    tree["params"]["teacher"] = {"proj": {"kernel": jnp.zeros((4, 4))}}
     path = str(tmp_path / "weights.npz")
     save_variables_npz(path, tree["params"], tree["frozen"])
 
@@ -145,27 +166,32 @@ def test_eval_only_cli_evaluates_a_jax_npz_dump(tmp_path):
                         "retinanet_R18_synthetic_mini.yaml")
     argv = ["--config-file", yaml,
             "--eval-only",
-            "MODEL.WEIGHTS", path, "INPUT.MIN_SIZE_TEST", "64",
-            "INPUT.MAX_SIZE_TEST", "96", "OUTPUT_DIR", str(tmp_path / "out")]
+            "MODEL.WEIGHTS", path, "MODEL.DEVICE", "cpu",
+            "INPUT.MIN_SIZE_TEST", "64", "INPUT.MAX_SIZE_TEST", "96",
+            "OUTPUT_DIR", str(tmp_path / "out"),
+            # the plain NMS's pairwise IoU grows with the square of the pool
+            "MODEL.RETINANET.TOPK_CANDIDATES_TEST", "100"]
     parser = ttrain.default_argument_parser()
-    with pytest.raises(NotImplementedError, match="queue item 1"):
-        ttrain.main(parser.parse_args(argv))  # the YAML asks for EVAL_TEACHER
-    res = ttrain.main(parser.parse_args(
-        argv + ["MODEL.DISTILLATOR.EVAL_TEACHER", "False"]))
+    res = ttrain.main(parser.parse_args(argv))  # the YAML asks EVAL_TEACHER
     assert np.isfinite(res["bbox"]["AP50"])
     assert (tmp_path / "out" / "inference" / "synthetic_mini"
             / "metrics.json").exists()
-    with pytest.raises(NotImplementedError, match="queue item 2"):
-        ttrain.main(parser.parse_args(argv[:2]))
+    bad = dict(flat)
+    bad["params/teacher/encoder/kernel"] = np.zeros((4, 4), np.float32)
+    tree = unflatten(bad)
+    save_variables_npz(path, tree["params"], tree["frozen"])
+    with pytest.raises(ValueError, match="unmapped"):
+        ttrain.main(parser.parse_args(argv))
 
 
 def test_eval_only_loads_a_torch_state_dict(tmp_path):
     cfg = retinanet_cfg()
-    src = build_model(cfg, dtype=torch.float32, seed=4)
+    src = build_model(cfg, dtype=torch.float32, device="cpu", seed=4)
     path = str(tmp_path / "weights.pt")
     torch.save(src.state_dict(), path)
     from lgd_tpu_torch import train as ttrain
 
-    dst = ttrain.load_weights(build_model(cfg, dtype=torch.float32), path)
+    dst = ttrain.load_weights(build_model(cfg, dtype=torch.float32,
+                                          device="cpu"), path)
     for k, v in src.state_dict().items():
         assert torch.equal(dst.state_dict()[k], v), k

@@ -9,16 +9,28 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+import torch
+
 from lgd_tpu.config import get_cfg
 from lgd_tpu.models.distillator import build_model as build_jax_model
+from lgd_tpu.structures import BatchedInstances as JaxInstances
+from lgd_tpu_torch.structures import BatchedInstances
 from lgd_tpu_torch.utils.param_bridge import flatten_variables
 
 ANCHOR_SIZES = [[x, x * 2 ** (1 / 3), x * 2 ** (2 / 3)]
                 for x in [32, 64, 128, 256, 512]]
 
+# The suite runs in several worker processes on the machine's cores at
+# once. Torch's default of one intra-op thread per core in each of them
+# oversubscribes the cores, and its spinning threads then made a port test
+# about seven times slower than with one thread while the other cores were
+# busy; one thread each keeps the whole run inside its time limit.
+torch.set_num_threads(1)
+
 
 def retinanet_cfg(depth=18, opts=()):
-    """DistillatorRetinaNet with 9 anchors per cell; float32 compute."""
+    """DistillatorRetinaNet with 9 anchors per cell and the teacher's
+    context box; float32 compute."""
     cfg = get_cfg()
     cfg.MODEL.META_ARCHITECTURE = "DistillatorRetinaNet"
     cfg.MODEL.RESNETS.DEPTH = depth
@@ -26,6 +38,7 @@ def retinanet_cfg(depth=18, opts=()):
     cfg.MODEL.FPN.IN_FEATURES = ["res3", "res4", "res5"]
     cfg.MODEL.ANCHOR_GENERATOR.SIZES = ANCHOR_SIZES
     cfg.MODEL.DISTILLATOR.EVAL_TEACHER = False
+    cfg.MODEL.DISTILLATOR.TEACHER.ADD_CONTEXT_BOX = True
     cfg.TPU.COMPUTE_DTYPE = "float32"
     cfg.OUTPUT_DIR = ""
     cfg.merge_from_list(list(opts))
@@ -36,14 +49,25 @@ def jax_model(cfg):
     return build_jax_model(cfg, dtype=jnp.float32)
 
 
-def student_shapes(model, canvas=(64, 64)):
-    """Flat {key: shape} of the student's variables, traced, not computed."""
+def variable_shapes(model, canvas=(64, 64)):
+    """Flat {key: shape} of all the distillator's variables (student,
+    teacher and adapter), traced, not computed."""
     images = jnp.zeros((1, *canvas, 3), jnp.float32)
     sizes = jnp.asarray([canvas], jnp.int32)
+    gt = JaxInstances.from_lists([np.asarray([[4.0, 4.0, 40.0, 30.0]])],
+                                 [np.asarray([3])], capacity=2)
     tree = jax.eval_shape(
-        lambda: model.init(jax.random.PRNGKey(0), images, sizes,
-                           method=model.inference))
+        lambda: model.init(jax.random.PRNGKey(0), images, sizes, gt,
+                           jnp.float32(0.0), jnp.float32(100.0),
+                           method=model.train_forward))
     return {k: tuple(v.shape) for k, v in flatten_variables(tree).items()}
+
+
+def torch_instances(gt) -> BatchedInstances:
+    """The port's container holding the same boxes as a JAX one."""
+    return BatchedInstances(torch.tensor(np.asarray(gt.boxes)),
+                            torch.tensor(np.asarray(gt.classes)).long(),
+                            torch.tensor(np.asarray(gt.valid)))
 
 
 def random_weights(shapes, seed=0):
