@@ -9,8 +9,9 @@
 2. Kernel K2 (greedy NMS, lgd_tpu_torch/csrc/nms.cu) against its plain
    PyTorch version on the card: adversarial pools (duplicate scores and
    boxes, IoU exactly at the threshold, invalid tails, all-invalid) and the
-   inference shape, 8 images x 2000 candidates with class offsets. Keep masks
-   must be equal bit for bit.
+   inference shape, 8 images x 2000 candidates with class offsets, and the
+   R-CNN RPN's 16 x 2000 pools with the levels as classes. Keep masks must
+   be equal bit for bit.
 3. Kernels K1a and K1b (masked attention forward and backward,
    lgd_tpu_torch/csrc/attention.cu) against the plain version and its
    autograd gradient, float32 with TF32 off, at B in {1, 16}, 8 heads,
@@ -43,6 +44,21 @@
    features, head outputs, and ``train_forward``'s five losses and
    normalizer with a backward, TF32 off; the card runs K1a/K1b, the CPU
    their plain versions.
+8. Kernel K3 (multilevel ROIAlign forward and backward,
+   lgd_tpu_torch/csrc/roi_align.cu) against the plain version on
+   adversarial ROIs (every level, past each edge, under a texel, the s_max
+   cap, invalid slots, an all-invalid image) in float32 and bf16, then at
+   the slice's shapes (16 x 512 ROIs of the student's bf16 and the
+   teacher's float32 p2-p5 at 800x1344, forward and backward; 8 x 1000 at
+   inference), held at the same limits and timed beside the plain version.
+9. Faster R-CNN R-50 FPN (detectron2's Base-RCNN-FPN at full width) through
+   ``do_test``: K2 twice and K3 once per batch, 1..100 finite detections
+   per image, COCO metrics; one batch again through ``model.inference``
+   with the plain NMS and ROIAlign swapped in, equal detection sets.
+10. Faster R-CNN LGD training through ``do_train``, checked and timed as in
+   5, with K1a/K1b 5, K2 2 and K3 forward and backward 2 each per step;
+   then ``do_test(eval_teacher=True)`` and the float32 card-vs-CPU
+   ``train_forward`` of 7 for the R-CNN model, with the same uniforms.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
@@ -67,7 +83,16 @@ ATTN_GRAD_TOL = 1e-4
 # card against CPU, float32 with TF32 off: losses summed over ~10^6 terms
 # in other orders, after 50 layers of convolutions
 TRAIN_LOSS_TOL = 1e-3
-KERNEL_SOURCES = ("nms", "attention")
+# K3 against its plain version, relative to the largest value: the float32
+# forward, and bfloat16 levels pooled into float32 (the kernel repeats the
+# plain version's float32 arithmetic); the float32 backward (float32
+# atomics add the shares in an order that changes from run to run).
+# bfloat16 outputs: within one bfloat16 ulp. bfloat16 gradients: within
+# one ulp of the rounding plus the float32 tolerance, since a gradient
+# that sums terms of both signs may differ in float32 by more than an ulp
+# of its small result.
+ROI_TOL = 1e-5
+KERNEL_SOURCES = ("nms", "attention", "roi_align")
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s
 # and float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -75,6 +100,8 @@ PEAK_F32 = 67e12
 TRAIN_BATCH = 16       # the reference's global batch
 TRAIN_STEPS = 8        # do_train steps with the checks
 TIMED_STEPS = 5        # steady-state steps timed after them
+RCNN_TRAIN_STEPS = 4   # R-CNN do_train steps with the checks
+RCNN_TIMED_STEPS = 3
 # record_function ranges of engine/train_step.py; the backward runs on
 # autograd's threads, outside them
 STEP_RANGES = ("train_step.forward", "train_step.optimizer")
@@ -107,7 +134,7 @@ def build_kernels():
     from concurrent.futures import ThreadPoolExecutor
 
     from lgd_tpu_torch import csrc
-    from lgd_tpu_torch.ops import attention, nms
+    from lgd_tpu_torch.ops import attention, nms, roi_align
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
@@ -115,9 +142,36 @@ def build_kernels():
             log(f"built {path}")
     nms._kernel()
     attention._kernel()
+    roi_align._kernel()
     log(f"kernel build+load: {time.perf_counter() - t0:.2f} s (nvcc "
         + ", ".join(f"{n} {csrc.build_seconds.get(n, 0.0):.2f} s"
                     for n in KERNEL_SOURCES) + ")")
+
+
+def launch_counters():
+    """The kernels' wrappers by name; each counts its launches in
+    ``launches``."""
+    from lgd_tpu_torch.ops import attention, nms, roi_align
+
+    return {"K1a": attention.attention_fwd, "K1b": attention.attention_bwd,
+            "K2": nms.greedy_keep_sorted,
+            "K3 forward": roi_align.roi_align_fwd,
+            "K3 backward": roi_align.roi_align_bwd}
+
+
+def zero_launches():
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in launch_counters().items()}
+
+
+def expect_launches(per_run, runs):
+    """{kernel: launches} of ``runs`` runs with ``per_run`` launches each,
+    every other kernel none."""
+    return {name: runs * per_run.get(name, 0) for name in launch_counters()}
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -223,6 +277,7 @@ class RecordingModel:
 
     def __init__(self, model):
         self.model = model
+        self.num_classes = model.num_classes
         self.outputs = []
 
     def inference(self, *args, **kwargs):
@@ -254,14 +309,16 @@ def phase_slice(device, card):
         f"parameters, {cfg.TPU.COMPUTE_DTYPE} convolutions")
 
     rec = RecordingModel(model)
-    nms.greedy_keep_sorted.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     res = do_test(cfg, rec, device, batch_size=8)
     wall = time.perf_counter() - t0
-    launches = nms.greedy_keep_sorted.launches
+    path_launches = read_launches()
+    launches = path_launches["K2"]
 
     check(launches > 0, "the slice never launched the NMS kernel")
-    check(launches == len(rec.outputs), (launches, len(rec.outputs)))
+    check(path_launches == expect_launches({"K2": 1}, len(rec.outputs)),
+          (path_launches, len(rec.outputs)))
     n_images = 0
     for dets in rec.outputs:
         for t in (dets.boxes, dets.scores):
@@ -329,9 +386,9 @@ def phase_slice(device, card):
     log(f"model.inference, batch {images.shape[0]} at "
         f"{tuple(images.shape[-2:])}: {step_ms:.2f} ms = "
         f"{1000 * images.shape[0] / step_ms:.2f} images/s [{card}]")
-    return {"launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+    return path_launches, {"max_abs_err": err, "ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "library_ms": None}
 
 
 def attention_inputs(B, N, seed, device, H=8, D=32):
@@ -445,11 +502,297 @@ def phase_attention(device, card):
              "bound_ms": b_bound, "bound_by": b_by, "library_ms": b_lib})
 
 
-def train_cfg(opts=()):
-    """The training slice: reference RetinaNet R-50 LGD solver settings,
-    the synthetic split at the reference training size (short edge 800,
-    long edge <= 1333: canvases 800x1344 and 1344x800), the pre-freeze
-    lifting after step 0 and distillation from step 3."""
+FPN_STRIDES = (4, 8, 16, 32)   # p2-p5, the ROI heads' levels
+
+
+def roi_inputs(B, C, canvas, dtype, device, seed, n_random):
+    """A p2-p5 pyramid (B, C) of a canvas and B x (12 + n_random) ROIs: the
+    fixed cases (every level, past each edge, under a texel, sqrt(area) of
+    112 and 224, the s_max cap, an empty box, a thin one), then random
+    boxes of log-uniform size; slot 8 of image 0 is invalid, and so is the
+    whole last image."""
+    g = torch.Generator().manual_seed(seed)
+    H, W = canvas
+    feats = [torch.randn(B, C, -(-H // s), -(-W // s), generator=g)
+             .to(device, dtype) for s in FPN_STRIDES]
+    fixed = torch.tensor([
+        [10.3, 12.7, 40.1, 30.9], [3.0, 5.0, 3.4, 5.3],
+        [-20.0, -15.0, 60.0, 50.0], [W - 90.0, H - 60.0, W + 30.0, H + 20.0],
+        [5.0, 7.0, 117.0, 119.0], [0.0, 0.0, 224.0, 224.0],
+        [0.0, 0.0, 448.0, 448.0], [-300.0, -200.0, W + 300.0, H + 200.0],
+        [30.0, 20.0, 80.0, 110.0], [64.0, 64.0, 64.0, 64.0],
+        [50.0, 40.0, 160.0, 128.0], [12.0, 33.0, 150.0, 41.0]])
+    ctr = torch.rand(B, n_random, 2, generator=g) * torch.tensor([W, H])
+    wh = torch.exp(torch.rand(B, n_random, 2, generator=g) * 6.5) + 1.0
+    boxes = torch.cat([fixed.expand(B, -1, -1),
+                       torch.cat([ctr - wh / 2, ctr + wh / 2], -1)], 1)
+    valid = torch.ones(boxes.shape[:2], dtype=torch.bool)
+    valid[0, 8] = False
+    valid[-1] = False
+    return feats, boxes.to(device), valid.to(device)
+
+
+def proposal_inputs(B, P, dtype, device, seed, canvas=(800, 1344), C=256):
+    """A p2-p5 pyramid at full width and B x P proposal-like ROIs (random
+    centres, log-uniform sides of 8-800 px, clipped to the canvas), all
+    valid: the shapes of the R-CNN box head on the slice."""
+    g = torch.Generator().manual_seed(seed)
+    H, W = canvas
+    feats = [torch.randn(B, C, H // s, W // s, generator=g).to(device, dtype)
+             for s in FPN_STRIDES]
+    ctr = torch.rand(B, P, 2, generator=g) * torch.tensor([W, H])
+    wh = 8.0 * torch.exp(torch.rand(B, P, 2, generator=g) * math.log(100.0))
+    lo = torch.minimum(ctr - wh / 2, torch.tensor([W, H]) - 2.0).clamp(min=0)
+    hi = torch.maximum(ctr + wh / 2, lo + 2.0).clamp(max=torch.tensor(
+        [W, H], dtype=torch.float32))
+    boxes = torch.cat([lo, hi], -1)
+    return feats, boxes.to(device), torch.ones(B, P, dtype=torch.bool,
+                                               device=device)
+
+
+def bf16_ulp(x):
+    """One bfloat16 ulp (8 significant bits) at each value of x."""
+    a = x.float().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def weighed_texel_bytes(features, index, coords, out, roi_chunk=512):
+    """Bytes of the level texels (all channels of each) that this run's
+    samples give a non-zero weight: what a forward must read. A mask per
+    level, scattered from the kernel's own sample geometry; computed once
+    per input, outside the timed calls."""
+    from lgd_tpu_torch.ops import roi_align as RA
+
+    dev = index.device
+    grid = torch.arange(out, device=dev, dtype=torch.float32)
+    n_max = max(int(index[:, 2:].max()), 1)
+    masks = [torch.zeros(f.shape[0] * f.shape[2] * f.shape[3],
+                         dtype=torch.bool, device=dev) for f in features]
+
+    def axis(origin, bin_size, n, size):
+        """(rows or columns, weighed) of every sample's two corners along
+        one axis: (ROIs, out * n_max * 2) each."""
+        rows, used = [], []
+        for i in range(n_max):
+            share = torch.where(i < n, 1.0 / n, 0.0)
+            c0, w0, c1, w1 = RA._bilinear_axis(
+                origin + bin_size * (grid + (i + 0.5) / n), size, share)
+            rows += [c0, c1]
+            used += [w0 > 0, w1 > 0]
+        return torch.cat(rows, 1), torch.cat(used, 1)
+
+    for s in range(0, index.shape[0], roi_chunk):
+        idx, crd = index[s:s + roi_chunk].long(), coords[s:s + roi_chunk]
+        for lvl, f in enumerate(features):
+            sel = idx[:, 1] == lvl
+            if not sel.any():
+                continue
+            i, c = idx[sel], crd[sel]
+            H, W = f.shape[2:]
+            n = i.shape[0]
+            ys, y_used = axis(c[:, 0:1], c[:, 2:3], i[:, 2:3].float(),
+                              torch.full((n, 1), H, device=dev))
+            xs, x_used = axis(c[:, 1:2], c[:, 3:4], i[:, 3:4].float(),
+                              torch.full((n, 1), W, device=dev))
+            pix = ((i[:, 0, None, None] * H + ys[:, :, None]) * W
+                   + xs[:, None, :])
+            masks[lvl][pix[y_used[:, :, None] & x_used[:, None, :]]] = True
+    C, itemsize = features[0].shape[1], features[0].element_size()
+    return sum(int(m.sum()) for m in masks) * C * itemsize
+
+
+def roi_bound(features, index, coords, out, out_itemsize, forward):
+    """(bound_ms, bound_by) of one K3 call: the level texels that the
+    samples weigh read once (forward), or every level's gradient written
+    once (backward: the gradient is dense); the pooled output written
+    (forward) or its gradient read (backward) once; the ROI tables read
+    once; 12 operations (4 weight products, 4 products and 4 sums) per
+    output element and sample that this run's ROIs take."""
+    out_elems_per_roi = features[0].shape[1] * out * out
+    levels = (weighed_texel_bytes(features, index, coords, out) if forward
+              else sum(f.numel() * f.element_size() for f in features))
+    n_bytes = (levels + index.numel() * 4 + coords.numel() * 4
+               + index.shape[0] * out_elems_per_roi * out_itemsize)
+    samples = (index[:, 2].long() * index[:, 3].long()
+               * (index[:, 1] >= 0).long()).sum().item()
+    return bound(n_bytes, 12 * out_elems_per_roi * samples)
+
+
+def hold_roi(feats, index, coords, out, grad, what):
+    """K3 forward and, given a pooled gradient, backward against the plain
+    version on the same inputs. The forward summed in float32 within
+    ROI_TOL of the largest value; for bfloat16 levels, also the rounded
+    output within one bf16 ulp. The backward against autograd of the plain
+    version on float32 copies of the levels (the weights do not depend on
+    the values): float32 within ROI_TOL of each level's largest value,
+    bfloat16 within one ulp of the rounding plus that. Returns the forward
+    summed in float32, the gradients, and the largest absolute errors of
+    the forward and the backward in the levels' dtype."""
+    from lgd_tpu_torch.ops import roi_align as RA
+
+    dtype = feats[0].dtype
+    got = RA.roi_align_fwd(feats, index, coords, out, out_dtype=torch.float32)
+    want = RA.multilevel_roi_align_reference(feats, index, coords, out,
+                                             out_dtype=torch.float32)
+    err_f = (got - want).abs().max().item()
+    check(err_f <= ROI_TOL * want.abs().max().item(),
+          f"K3 forward differs ({what}): {err_f}")
+    if dtype == torch.bfloat16:  # then rounded once to bf16
+        k = RA.roi_align_fwd(feats, index, coords, out)
+        p = RA.multilevel_roi_align_reference(feats, index, coords, out)
+        check(k.dtype == torch.bfloat16, k.dtype)
+        diff = (k.float() - p.float()).abs()
+        check((diff <= bf16_ulp(p)).all(),
+              f"K3 bf16 forward beyond one ulp ({what})")
+        err_f = max(err_f, diff.max().item())
+        del k, p, diff
+    del want
+    if grad is None:
+        return got, None, err_f, 0.0
+    got_g = RA.roi_align_bwd(grad, index, coords, feats)
+    leaves = [f.detach().float().requires_grad_() for f in feats]
+    want_g = torch.autograd.grad(RA.multilevel_roi_align_reference(
+        leaves, index, coords, out), leaves, grad.float())
+    err_b = 0.0
+    for lvl, (a, b) in enumerate(zip(got_g, want_g)):
+        check(a.dtype == dtype and a.shape == b.shape, (a.dtype, a.shape))
+        b = b.to(dtype).float()
+        e = (a.float() - b).abs()
+        tol = ROI_TOL * b.abs().max()
+        if dtype == torch.bfloat16:
+            tol = tol + bf16_ulp(b)
+        check((e <= tol).all(),
+              f"K3 backward beyond tolerance at p{lvl + 2} ({what}): "
+              f"{e.max().item()}")
+        err_b = max(err_b, e.max().item())
+    return got, got_g, err_f, err_b
+
+
+def check_roi_case(B, C, canvas, n_random, dtype, device, out=7):
+    """``hold_roi`` on the adversarial ROIs of ``roi_inputs``; invalid ROIs
+    pool zeros and the all-invalid image gets no gradient. Returns the
+    largest absolute errors of the forward and the backward."""
+    from lgd_tpu_torch.ops import roi_align as RA
+
+    feats, boxes, valid = roi_inputs(B, C, canvas, dtype, device,
+                                     B * 100 + C, n_random)
+    index, coords = RA.roi_geometry(boxes, valid, FPN_STRIDES, out, 2)
+    grad = torch.randn(index.shape[0], feats[0].shape[1], out, out,
+                       generator=torch.Generator().manual_seed(C))
+    what = f"{dtype}, C={C}"
+    got, got_g, err_f, err_b = hold_roi(feats, index, coords, out,
+                                        grad.to(device, dtype), what)
+    check(not got[~valid.flatten()].any(), "an invalid ROI pooled non-zeros")
+    check(not any(g[-1].any() for g in got_g),
+          "the all-invalid image got a gradient")
+    return err_f, err_b
+
+
+def phase_roi_align(device, card):
+    """K3 forward and backward against the plain version on adversarial
+    ROIs in both dtypes, then timed at the slice's shapes; returns the
+    forward's and the backward's records (launches come from the paths)."""
+    from lgd_tpu_torch.ops import roi_align as RA
+
+    out = 7
+    err_f = err_b = 0.0
+    checked = 0
+    with NoTF32():
+        for B, C, canvas, n_random in ((3, 32, (256, 352), 60),
+                                       (2, 256, (800, 1344), 40)):
+            for dtype in (torch.float32, torch.bfloat16):
+                e_f, e_b = check_roi_case(B, C, canvas, n_random, dtype,
+                                          device, out)
+                err_f, err_b = max(err_f, e_f), max(err_b, e_b)
+                checked += 1
+    torch.cuda.synchronize()
+    log(f"K3: {checked} adversarial cases (float32 and bfloat16 levels, "
+        f"edges, tiny boxes, the s_max cap, invalid slots and an all-invalid "
+        f"image) match the plain version (max abs err forward {err_f:.3e}, "
+        f"backward {err_b:.3e}; tolerance {ROI_TOL} of the largest value, "
+        f"one bf16 ulp more after rounding)")
+
+    # the slice's shapes: held against the plain version at the same
+    # limits, then timed; the kernel line's errors are these
+    records = {}
+    slice_err_f = slice_err_b = 0.0
+    for what, B, P, dtype in (("training, student", 16, 512, torch.bfloat16),
+                              ("training, teacher", 16, 512, torch.float32),
+                              ("inference", 8, 1000, torch.bfloat16)):
+        feats, boxes, valid = proposal_inputs(B, P, dtype, device, seed=P)
+        index, coords = RA.roi_geometry(boxes, valid, FPN_STRIDES, out, 2)
+        training = what.startswith("training")
+        grad = (torch.randn(index.shape[0], feats[0].shape[1], out, out,
+                            device=device, dtype=dtype) if training else None)
+        with NoTF32():
+            _, _, e_f, e_b = hold_roi(feats, index, coords, out, grad, what)
+        slice_err_f, slice_err_b = max(slice_err_f, e_f), max(slice_err_b,
+                                                              e_b)
+        f_ms = cuda_ms(lambda: RA.roi_align_fwd(feats, index, coords, out),
+                       20, 3)
+        f_plain = cuda_ms(lambda: RA.multilevel_roi_align_reference(
+            feats, index, coords, out), 2, 1)
+        f_bound, f_by = roi_bound(feats, index, coords, out,
+                                  feats[0].element_size(), forward=True)
+        line = (f"K3 forward, {what}: {index.shape[0]} ROIs of "
+                f"{tuple(feats[0].shape)}"
+                f"-p5 {dtype}: max abs err {e_f:.3e}, kernel {f_ms:.4f} ms, "
+                f"plain {f_plain:.4f} ms, bound {f_bound:.6f} ms ({f_by})")
+        if training:
+            b_ms = cuda_ms(lambda: RA.roi_align_bwd(grad, index, coords,
+                                                    feats), 20, 3)
+            leaves = [f.detach().requires_grad_() for f in feats]
+            pooled = RA.multilevel_roi_align_reference(leaves, index, coords,
+                                                       out)
+            b_plain = cuda_ms(lambda: torch.autograd.grad(
+                pooled, leaves, grad, retain_graph=True), 2, 1)
+            del pooled, leaves
+            b_bound, b_by = roi_bound(feats, index, coords, out,
+                                      grad.element_size(), forward=False)
+            line += (f"; backward: max abs err {e_b:.3e}, kernel {b_ms:.4f} "
+                     f"ms, plain (autograd backward) {b_plain:.4f} ms, bound "
+                     f"{b_bound:.6f} ms ({b_by})")
+            if "student" in what:  # the kernel line's shapes
+                records = ({"ms": f_ms, "plain_ms": f_plain,
+                            "bound_ms": f_bound, "bound_by": f_by,
+                            "library_ms": None},
+                           {"ms": b_ms, "plain_ms": b_plain,
+                            "bound_ms": b_bound, "bound_by": b_by,
+                            "library_ms": None})
+        log(line + f" [{card}]")
+        del feats, grad
+        torch.cuda.empty_cache()
+    records[0]["max_abs_err"] = slice_err_f
+    records[1]["max_abs_err"] = slice_err_b
+    return records
+
+
+def phase_nms_rpn(device):
+    """K2 at the RPN's shape: 16 images x 2000 proposals with the five
+    levels as classes at NMS 0.7, bit-equal to its plain version."""
+    import numpy as np
+
+    from lgd_tpu_torch.ops import nms
+
+    rng = np.random.RandomState(1)
+    boxes, scores, _, valid = adversarial_pool(rng, 16, 2000, device)
+    levels = torch.from_numpy(rng.randint(0, 5, (16, 2000))).to(device)
+    for thr in (0.7, 0.5):
+        got = nms.batched_nms_mask(boxes, scores, levels, valid, thr)
+        want = nms.batched_nms_mask(boxes, scores, levels, valid, thr,
+                                    keep_fn=nms.greedy_keep_sorted_reference)
+        check(torch.equal(got, want), f"K2 differs at (16, 2000), {thr}")
+    torch.cuda.synchronize()
+    log("K2 at the RPN's (16, 2000) pools, levels as classes: bit-equal to "
+        "the plain version")
+
+
+def lgd_train_opts(steps, distill_from):
+    """The LGD training settings of both detectors: reference R-50 solver
+    settings, the synthetic split at the reference training size (short
+    edge 800, long edge <= 1333: canvases 800x1344 and 1344x800), batch
+    TRAIN_BATCH, the teacher's context box, the backbone pre-freeze lifting
+    after step 0 and distillation from step ``distill_from``."""
     solver = []
     for who in ("STUDENT", "TEACHER"):
         node = f"MODEL.DISTILLATOR.{who}.SOLVER."
@@ -459,16 +802,65 @@ def train_cfg(opts=()):
                    node + "STEPS", (60000, 80000), node + "GAMMA", 0.1,
                    node + "WARMUP_FACTOR", 1e-3, node + "WARMUP_ITERS", 1000,
                    node + "WARMUP_METHOD", "linear"]
-    return smoke_cfg([
+    return [
         "MODEL.DISTILLATOR.TEACHER.ADD_CONTEXT_BOX", True,
         "MODEL.DISTILLATOR.PRE_FREEZE_STUDENT_BACKBONE_ITERS", 1,
-        "MODEL.DISTILLATOR.PRE_NONDISTILL_ITERS", 3,
-        "MODEL.RETINANET.SMOOTH_L1_LOSS_BETA", 0.0,
+        "MODEL.DISTILLATOR.PRE_NONDISTILL_ITERS", distill_from,
         "DATASETS.TRAIN", ("synthetic_mini",),
         "INPUT.MIN_SIZE_TRAIN", (800,), "INPUT.MAX_SIZE_TRAIN", 1333,
         "SOLVER.IMS_PER_BATCH", TRAIN_BATCH,
-        "SOLVER.MAX_ITER", TRAIN_STEPS,
-        *solver, *opts])
+        "SOLVER.MAX_ITER", steps,
+        *solver]
+
+
+def train_cfg(opts=()):
+    """The RetinaNet training slice."""
+    return smoke_cfg([*lgd_train_opts(TRAIN_STEPS, 3),
+                      "MODEL.RETINANET.SMOOTH_L1_LOSS_BETA", 0.0, *opts])
+
+
+def rcnn_cfg(opts=()):
+    """Faster R-CNN R-50 FPN at full width, as detectron2's public
+    configs/Base-RCNN-FPN.yaml: res2-res5 into a 256-channel FPN with the
+    max-pool p6, one anchor size per level (32-512) at 3 ratios, RPN
+    proposals 2000 per level then 1000 per image in training and 1000 /
+    1000 at test at NMS 0.7, 512 ROIs per image at 0.25 positives,
+    ROIAlignV2 7x7 with adaptive sampling over p2-p5, two FCs of 1024, 80
+    classes; bf16 student convolutions, seeded random weights."""
+    from lgd_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_list([
+        "MODEL.META_ARCHITECTURE", "DistillatorGeneralizedRCNN",
+        "MODEL.BACKBONE.NAME", "build_resnet_fpn_backbone",
+        "MODEL.RESNETS.DEPTH", 50,
+        "MODEL.RESNETS.OUT_FEATURES", ["res2", "res3", "res4", "res5"],
+        "MODEL.FPN.IN_FEATURES", ["res2", "res3", "res4", "res5"],
+        "MODEL.ANCHOR_GENERATOR.SIZES", [[32], [64], [128], [256], [512]],
+        "MODEL.RPN.IN_FEATURES", ["p2", "p3", "p4", "p5", "p6"],
+        "MODEL.RPN.PRE_NMS_TOPK_TRAIN", 2000,
+        "MODEL.RPN.PRE_NMS_TOPK_TEST", 1000,
+        "MODEL.RPN.POST_NMS_TOPK_TRAIN", 1000,
+        "MODEL.RPN.POST_NMS_TOPK_TEST", 1000,
+        "MODEL.ROI_HEADS.IN_FEATURES", ["p2", "p3", "p4", "p5"],
+        "MODEL.ROI_BOX_HEAD.NAME", "FastRCNNConvFCHead",
+        "MODEL.ROI_BOX_HEAD.NUM_FC", 2,
+        "MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION", 7,
+        # random weights put every class probability near 1/81, under the
+        # default 0.05 threshold: keep them so NMS sees full pools
+        "MODEL.ROI_HEADS.SCORE_THRESH_TEST", 0.0,
+        "MODEL.DISTILLATOR.EVAL_TEACHER", False,
+        "DATASETS.TEST", ("synthetic_mini",),
+        "TPU.COMPUTE_DTYPE", "bfloat16",
+        "OUTPUT_DIR", "",
+        *opts,
+    ])
+    return cfg.freeze()
+
+
+def rcnn_train_cfg(opts=()):
+    """The R-CNN training slice: distillation from step 2."""
+    return rcnn_cfg([*lgd_train_opts(RCNN_TRAIN_STEPS, 2), *opts])
 
 
 # device kernels grouped by what they do, for the profile's summary: the
@@ -476,6 +868,7 @@ def train_cfg(opts=()):
 # type
 KERNEL_FAMILIES = (
     ("K1a/K1b attention", ("attn_fwd_kernel", "attn_bwd_kernel")),
+    ("K3 ROIAlign", ("roi_align_fwd_kernel", "roi_align_bwd_kernel")),
     ("K2 NMS", ("nms_mask_kernel", "nms_sweep_kernel")),
     ("layout NCHW<->NHWC", ("nchwToNhwc", "nhwcToNchw", "AddPadding")),
     ("convolution", ("implicit_gemm", "conv", "fprop", "dgrad", "wgrad",
@@ -522,9 +915,21 @@ def device_profile(fn, steps):
     return wall, sum(by_name.values()), top, ranges
 
 
-def phase_train(device, card):
-    """R-50 FPN LGD training at full width through do_train, then timed
-    steady-state steps; returns (model, cfg, K1a launches, K1b launches)."""
+RETINANET_LOSSES = ("loss_box_reg", "loss_box_reg.tea", "loss_cls",
+                    "loss_cls.tea", "loss_distill")
+RCNN_LOSSES = tuple(sorted(
+    [k + t for k in ("loss_box_reg", "loss_cls", "loss_rpn_cls",
+                     "loss_rpn_loc") for t in ("", ".tea")]
+    + ["loss_distill"]))
+
+
+def phase_train(device, card, cfg, what, steps, timed, distill_from,
+                per_step, loss_keys):
+    """LGD training at full width through do_train (``steps`` steps, the
+    backbone pre-freeze lifting after step 0, distillation from step
+    ``distill_from``), then ``timed`` timed steady-state steps and a
+    profile of two. Every kernel launches ``per_step`` times per step.
+    Returns (model, launches of the do_train run)."""
     from lgd_tpu_torch.data import TrainLoader
     from lgd_tpu_torch.engine.train_step import (
         batch_to_device,
@@ -533,27 +938,26 @@ def phase_train(device, card):
     )
     from lgd_tpu_torch.engine.trainer import do_train
     from lgd_tpu_torch.models.distillator import build_model
-    from lgd_tpu_torch.ops import attention as A
 
-    cfg = train_cfg()
     check(phase(cfg, 0) == (0.0, 0.0) and phase(cfg, 1) == (0.0, 1.0)
-          and phase(cfg, 3) == (1.0, 1.0), "phase schedule")
+          and phase(cfg, distill_from) == (1.0, 1.0)
+          and phase(cfg, distill_from - 1)[0] == 0.0, "phase schedule")
+    batch = cfg.SOLVER.IMS_PER_BATCH
     dtype = getattr(torch, cfg.TPU.COMPUTE_DTYPE)
     model = build_model(cfg, dtype=dtype, device=device, seed=0)
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"train model: R-{cfg.MODEL.RESNETS.DEPTH} FPN RetinaNet + "
+    log(f"train model: R-{cfg.MODEL.RESNETS.DEPTH} FPN {what} + "
         f"{cfg.MODEL.DISTILLATOR.TEACHER.NR_TRANSFORMER_HEADS}-head teacher "
         f"({cfg.TPU.MAX_INSTANCES + 1} tokens), {n_params} parameters, "
-        f"{cfg.TPU.COMPUTE_DTYPE} student, float32 teacher, batch "
-        f"{TRAIN_BATCH}")
+        f"{cfg.TPU.COMPUTE_DTYPE} student, float32 teacher, batch {batch}")
 
     # record what each step computed: the losses, and the gradient that
     # loss_distill alone sends into the student's p3 features
     losses_seen, distill_grads = [], []
     train_forward, distill_loss = model.train_forward, model.distill_loss
 
-    def recording_forward(*args):
-        losses, norm = train_forward(*args)
+    def recording_forward(*args, **kwargs):
+        losses, norm = train_forward(*args, **kwargs)
         losses_seen.append({k: v.detach() for k, v in losses.items()})
         return losses, norm
 
@@ -567,46 +971,48 @@ def phase_train(device, card):
     stem = model.student.bottom_up.stem_conv1.weight.detach().clone()
     res3 = model.student.bottom_up.res3_0.conv1.weight.detach().clone()
     loader = TrainLoader(cfg)
-    A.attention_fwd.launches = A.attention_bwd.launches = 0
+    zero_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     do_train(cfg, model, device, loader)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1a, k1b = A.attention_fwd.launches, A.attention_bwd.launches
+    launches = read_launches()
     del model.train_forward, model.distill_loss
 
-    check(len(losses_seen) == TRAIN_STEPS, len(losses_seen))
+    check(len(losses_seen) == steps, len(losses_seen))
     for i, losses in enumerate(losses_seen):
-        check(sorted(losses) == ["loss_box_reg", "loss_box_reg.tea",
-                                 "loss_cls", "loss_cls.tea", "loss_distill"],
-              sorted(losses))
+        check(tuple(sorted(losses)) == loss_keys, sorted(losses))
         for key, val in losses.items():
             check(math.isfinite(float(val)), f"step {i} {key} = {val}")
     for i, (flag, grad) in enumerate(distill_grads):
         g = float(grad)
-        check(flag == float(i >= 3), f"step {i} distill flag {flag}")
-        check((g > 0) == (i >= 3), f"step {i}: loss_distill sends {g} to "
-                                   f"the student with flag {flag}")
-    check(k1a == 5 * TRAIN_STEPS and k1b == 5 * TRAIN_STEPS,
-          f"K1a {k1a}, K1b {k1b} launches in {TRAIN_STEPS} steps")
+        on = i >= distill_from
+        check(flag == float(on), f"step {i} distill flag {flag}")
+        check((g > 0) == on, f"step {i}: loss_distill sends {g} to the "
+                             f"student with flag {flag}")
+    check(launches == expect_launches(per_step, steps),
+          f"{launches} launches in {steps} steps, expected {per_step} per "
+          f"step")
     check(torch.equal(model.student.bottom_up.stem_conv1.weight, stem),
           "the FREEZE_AT stem conv moved")
     check(not torch.equal(model.student.bottom_up.res3_0.conv1.weight, res3),
           "res3 never trained after the pre-freeze")
-    log(f"do_train: {TRAIN_STEPS} steps in {wall:.2f} s (first-step set-up "
-        f"and host data included); K1a {k1a}, K1b {k1b} launches; "
-        f"loss_distill reaches the student from step 3 (|grad p3| "
-        f"{float(distill_grads[2][1]):.3e} at step 2, "
-        f"{float(distill_grads[3][1]):.3e} at step 3); stem unchanged")
-    for i in (0, TRAIN_STEPS - 1):
+    log(f"do_train: {steps} steps in {wall:.2f} s (first-step set-up and "
+        f"host data included); launches {launches}; loss_distill reaches "
+        f"the student from step {distill_from} (|grad p3| "
+        f"{float(distill_grads[distill_from - 1][1]):.3e} at step "
+        f"{distill_from - 1}, {float(distill_grads[distill_from][1]):.3e} "
+        f"at step {distill_from}); stem unchanged; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    for i in (0, steps - 1):
         log(f"  step {i}: " + ", ".join(
             f"{k} {float(v):.4f}" for k, v in sorted(losses_seen[i].items())))
 
     # steady state (distillation on, backbone training), staged batches
     init_state, train_step = make_train_step(cfg, model)
     state = init_state()
-    state.step = TRAIN_STEPS
+    state.step = steps
     it = iter(loader)
     batches = [batch_to_device(next(it), device) for _ in range(2)]
     canvases = sorted({tuple(b["image"].shape[-2:]) for b in batches})
@@ -620,15 +1026,15 @@ def phase_train(device, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
+    for _ in range(timed):
         one_step()
     torch.cuda.synchronize()
-    step_ms = 1e3 * (time.perf_counter() - t0) / TIMED_STEPS
+    step_ms = 1e3 * (time.perf_counter() - t0) / timed
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     prof_wall, busy, top, ranges = device_profile(one_step, 2)
-    log(f"train step, batch {TRAIN_BATCH} at {canvases}: {step_ms:.2f} ms = "
-        f"{1e3 * TRAIN_BATCH / step_ms:.2f} images/s, peak memory "
-        f"{peak:.2f} GiB [{card}]")
+    log(f"train step ({what}), batch {batch} at {canvases}: {step_ms:.2f} ms "
+        f"= {1e3 * batch / step_ms:.2f} images/s, peak memory {peak:.2f} GiB "
+        f"[{card}]")
     if busy > 0:
         log(f"profiled 2 steps: wall {prof_wall:.2f} ms, device busy "
             f"{busy:.2f} ms, idle share {1 - busy / prof_wall:.4f} [{card}]")
@@ -638,7 +1044,8 @@ def phase_train(device, card):
             families[family] = families.get(family, 0.0) + ms / 2
         families = sorted(families.items(), key=lambda kv: -kv[1])
         for family, ms in families:
-            log(f"  {ms:10.3f} ms/step  {family}")
+            log(f"  {ms:10.3f} ms/step  {100 * ms / (busy / 2):6.2f}%  "
+                f"{family}")
         for name, ms in top[:12]:
             log(f"  {ms / 2:10.3f} ms/step  {name[:100]}")
         fwd, opt = (ranges[k] / 2 for k in STEP_RANGES)
@@ -650,28 +1057,185 @@ def phase_train(device, card):
     else:
         log("profiler saw no device time: idle share not measured")
     del batches, holder, state
-    return model, cfg, k1a, k1b
+    return model, launches
 
 
-def phase_eval_teacher(model, cfg, device, card):
-    """do_test with the teacher's features through the student's head."""
+def phase_eval_teacher(model, cfg, device, card, per_batch):
+    """do_test with the teacher's features through the student's head;
+    every kernel launches ``per_batch`` times per batch."""
     from lgd_tpu_torch.engine.trainer import do_test
-    from lgd_tpu_torch.ops import attention as A
 
     rec = RecordingModel(model)
-    A.attention_fwd.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     res = do_test(cfg, rec, device, batch_size=8, eval_teacher=True)
     wall = time.perf_counter() - t0
-    launches = A.attention_fwd.launches
-    check(launches == 5 * len(rec.outputs), (launches, len(rec.outputs)))
+    launches = read_launches()
+    check(launches == expect_launches(per_batch, len(rec.outputs)),
+          (launches, len(rec.outputs)))
     for dets in rec.outputs:
         check(torch.isfinite(dets.scores).all(), "non-finite detections")
     for key in ("AP", "AP50", "AP75", "AR@100"):
         check(key in res["bbox"] and math.isfinite(res["bbox"][key]), key)
-    log(f"do_test(eval_teacher=True): {len(rec.outputs)} batches, K1a "
-        f"launches {launches}, AP {res['bbox']['AP']:.4f}, AP50 "
+    log(f"do_test(eval_teacher=True): {len(rec.outputs)} batches, launches "
+        f"{launches}, AP {res['bbox']['AP']:.4f}, AP50 "
         f"{res['bbox']['AP50']:.4f}, wall {wall:.2f} s [{card}]")
+    return launches
+
+
+def same_det_sets(a, b, i, box_tol=1e-3, score_tol=1e-4):
+    """Image i's valid detections of a and b are equal as sets: the same
+    count, each row of a matched to its own row of b of the same class with
+    the nearest box, within tolerance. Returns the largest box and score
+    differences."""
+    rows = []
+    for d in (a, b):
+        v = d.valid[i]
+        rows.append((d.scores[i][v].float().cpu(), d.classes[i][v].cpu(),
+                     d.boxes[i][v].float().cpu()))
+    (sa, ca, ba), (sb, cb, bb) = rows
+    check(len(sa) == len(sb), f"image {i}: {len(sa)} vs {len(sb)} detections")
+    free = torch.ones(len(sb), dtype=torch.bool)
+    worst_box = worst_score = 0.0
+    for s, c, box in zip(sa, ca, ba):
+        dist = (bb - box).abs().amax(1)
+        dist = torch.where(free & (cb == c), dist, float("inf"))
+        j = int(dist.argmin())
+        check(float(dist[j]) <= box_tol
+              and abs(float(sb[j] - s)) <= score_tol,
+              f"image {i}: detection {c.item()} {box.tolist()} {float(s)} "
+              f"has no match")
+        free[j] = False
+        worst_box = max(worst_box, float(dist[j]))
+        worst_score = max(worst_score, abs(float(sb[j] - s)))
+    return worst_box, worst_score
+
+
+class PlainKernels:
+    """Inside the block the NMS sweep and the ROIAlign forward are their
+    plain versions: the R-CNN code finds ``nms.greedy_keep_sorted`` and
+    ``roi_align.roi_align_fwd`` by module attribute when it calls them, so
+    ``model.inference`` itself runs the plain path. Every pool the sweep
+    sees is kept in ``pools``."""
+
+    def __enter__(self):
+        from lgd_tpu_torch.ops import nms
+        from lgd_tpu_torch.ops import roi_align as RA
+
+        self.saved = nms.greedy_keep_sorted, RA.roi_align_fwd
+        self.pools = []
+
+        def keep(boxes_s, valid_s, thr):
+            self.pools.append((boxes_s, valid_s, thr))
+            return nms.greedy_keep_sorted_reference(boxes_s, valid_s, thr)
+
+        def pool(features, index, coords, output_size, out_dtype=None):
+            return RA.multilevel_roi_align_reference(
+                features, index, coords, output_size, out_dtype=out_dtype)
+
+        nms.greedy_keep_sorted, RA.roi_align_fwd = keep, pool
+        return self
+
+    def __exit__(self, *exc):
+        from lgd_tpu_torch.ops import nms
+        from lgd_tpu_torch.ops import roi_align as RA
+
+        nms.greedy_keep_sorted, RA.roi_align_fwd = self.saved
+
+
+def phase_rcnn_inference(device, card):
+    """Faster R-CNN R-50 FPN inference through do_test, then one batch
+    again through ``model.inference`` with the plain NMS and the plain
+    ROIAlign; K2 on that batch's RPN pool. Returns the path's launches."""
+    from lgd_tpu_torch.data import TestLoader, get_dataset_dicts
+    from lgd_tpu_torch.engine.trainer import do_test
+    from lgd_tpu_torch.models.distillator import build_model
+    from lgd_tpu_torch.ops import nms
+
+    cfg = rcnn_cfg()
+    model = build_model(cfg, dtype=torch.bfloat16, device=device, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"model: R-{cfg.MODEL.RESNETS.DEPTH} FPN Faster R-CNN, {n_params} "
+        f"parameters, {cfg.TPU.COMPUTE_DTYPE} convolutions")
+
+    rec = RecordingModel(model)
+    zero_launches()
+    t0 = time.perf_counter()
+    res = do_test(cfg, rec, device, batch_size=8)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n = len(rec.outputs)
+    check(launches == expect_launches({"K2": 2, "K3 forward": 1}, n),
+          (launches, n))
+    for dets in rec.outputs:
+        for t in (dets.boxes, dets.scores):
+            check(torch.isfinite(t).all(), "non-finite detections")
+        per_image = dets.valid.sum(dim=1).tolist()
+        check(all(1 <= k <= 100 for k in per_image), per_image)
+    for key in ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR@100"):
+        check(key in res["bbox"], key)
+    log(f"R-CNN do_test: {n} batches, launches {launches}, AP "
+        f"{res['bbox']['AP']:.4f}, wall {wall:.2f} s = {16 / wall:.2f} "
+        f"images/s incl. host preprocessing and COCO scoring [{card}]")
+
+    loader = TestLoader(cfg, get_dataset_dicts("synthetic_mini"), 8)
+    batch = next(iter(loader))
+    images = torch.from_numpy(batch["image"]).to(device).permute(0, 3, 1, 2)
+    sizes = torch.from_numpy(batch["image_size"]).to(device)
+    kern = model.inference(images, sizes)
+    before = read_launches()
+    with PlainKernels() as plain_run:
+        plain = model.inference(images, sizes)
+    check(read_launches() == before, "the plain run launched a kernel")
+    pools = plain_run.pools
+    check(len(pools) == 2, f"{len(pools)} NMS pools")
+    worst = [same_det_sets(kern, plain, i) for i in range(images.shape[0])]
+    for what, (boxes_s, valid_s, thr) in zip(("RPN", "box head"), pools):
+        keep = nms.greedy_keep_sorted(boxes_s, valid_s, thr)
+        check(torch.equal(keep, nms.greedy_keep_sorted_reference(
+            boxes_s, valid_s, thr)), f"K2 differs on the {what} pool")
+    log(f"one batch ({tuple(images.shape)}): the kernels and the plain NMS "
+        f"and ROIAlign give equal detection sets (largest differences: box "
+        f"{max(w[0] for w in worst):.3e} px, score "
+        f"{max(w[1] for w in worst):.3e}); K2 bit-equal on the RPN pool "
+        f"{tuple(pools[0][0].shape)} and the box head's "
+        f"{tuple(pools[1][0].shape)}")
+    boxes_s, valid_s, thr = pools[0]
+    ms = cuda_ms(lambda: nms.greedy_keep_sorted(boxes_s, valid_s, thr), 50)
+    plain_ms = cuda_ms(lambda: nms.greedy_keep_sorted_reference(
+        boxes_s, valid_s, thr), 2, 1)
+    log(f"K2 at the RPN pool {tuple(boxes_s.shape)}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms [{card}]")
+
+    def infer():
+        model.inference(images, sizes)
+
+    step_ms = cuda_ms(infer, iters=5)
+    log(f"R-CNN model.inference, batch {images.shape[0]} at "
+        f"{tuple(images.shape[-2:])}: {step_ms:.2f} ms = "
+        f"{1000 * images.shape[0] / step_ms:.2f} images/s [{card}]")
+    del model, rec
+    torch.cuda.empty_cache()
+    return launches
+
+
+def card_vs_cpu_gt(cfg):
+    from lgd_tpu_torch.structures import BatchedInstances
+
+    return BatchedInstances.from_lists(  # image 1 has no GT: fallback slot
+        [[[8.0, 10.0, 90.0, 70.0], [40.0, 30.0, 150.0, 120.0]],
+         torch.zeros((0, 4)).numpy()], [[3, 41], []], cfg.TPU.MAX_INSTANCES)
+
+
+def compare_card_cpu(names, got, want):
+    for name, a, b in zip(names, got, want):
+        scale = b.abs().max().item()
+        diff = (a - b).abs().max().item()
+        # cuDNN and oneDNN sum 50 layers of convolutions in other orders
+        tol = TRAIN_LOSS_TOL if name.startswith("loss") else 1e-3
+        check(diff <= tol * scale, (name, diff, scale))
+        log(f"card vs CPU float32 {name} {tuple(a.shape)}: max abs diff "
+            f"{diff:.3e} (scale {scale:.3e})")
 
 
 def phase_card_vs_cpu(device):
@@ -680,8 +1244,6 @@ def phase_card_vs_cpu(device):
     train_forward's losses and normalizer with a backward (K1a and K1b on
     the card, their plain versions on the CPU)."""
     from lgd_tpu_torch.models.distillator import build_model
-    from lgd_tpu_torch.ops import attention as A
-    from lgd_tpu_torch.structures import BatchedInstances
 
     cfg = smoke_cfg(["TPU.COMPUTE_DTYPE", "float32",
                      "MODEL.DISTILLATOR.TEACHER.ADD_CONTEXT_BOX", True])
@@ -690,9 +1252,7 @@ def phase_card_vs_cpu(device):
     g = torch.Generator().manual_seed(0)
     images = torch.rand(2, 3, 128, 160, generator=g) * 255
     sizes = torch.tensor([[128, 160], [100, 120]])
-    gt = BatchedInstances.from_lists(  # image 1 has no GT: fallback slot
-        [[[8.0, 10.0, 90.0, 70.0], [40.0, 30.0, 150.0, 120.0]],
-         torch.zeros((0, 4)).numpy()], [[3, 41], []], cfg.TPU.MAX_INSTANCES)
+    gt = card_vs_cpu_gt(cfg)
 
     def outputs(model, dev):
         with torch.no_grad():
@@ -706,26 +1266,75 @@ def phase_card_vs_cpu(device):
         out += [losses[k].detach().cpu() for k in sorted(losses)]
         return out + [norm.cpu()]
 
-    A.attention_fwd.launches = A.attention_bwd.launches = 0
+    zero_launches()
     with NoTF32():
         got = outputs(gpu, device)
     torch.cuda.synchronize()
-    launched = (A.attention_fwd.launches, A.attention_bwd.launches)
-    check(launched == (5, 5), f"card train_forward launched {launched}")
+    launched = read_launches()
+    check(launched == expect_launches({"K1a": 5, "K1b": 5}, 1),
+          f"card train_forward launched {launched}")
     want = outputs(cpu, "cpu")
-    check((A.attention_fwd.launches, A.attention_bwd.launches) == launched,
-          "the CPU model launched a kernel")
-    names = [*cfg.MODEL.RETINANET.IN_FEATURES, "logits", "deltas",
-             "loss_box_reg", "loss_box_reg.tea", "loss_cls", "loss_cls.tea",
-             "loss_distill", "loss_normalizer"]
-    for name, a, b in zip(names, got, want):
-        scale = b.abs().max().item()
-        diff = (a - b).abs().max().item()
-        # cuDNN and oneDNN sum 50 layers of convolutions in other orders
-        tol = TRAIN_LOSS_TOL if name.startswith("loss") else 1e-3
-        check(diff <= tol * scale, (name, diff, scale))
-        log(f"card vs CPU float32 {name} {tuple(a.shape)}: max abs diff "
-            f"{diff:.3e} (scale {scale:.3e})")
+    check(read_launches() == launched, "the CPU model launched a kernel")
+    compare_card_cpu([*cfg.MODEL.RETINANET.IN_FEATURES, "logits", "deltas",
+                      *RETINANET_LOSSES, "loss_normalizer"], got, want)
+
+
+def phase_rcnn_card_vs_cpu(device):
+    """The float32 R-CNN model on the card against the same model on the
+    CPU, on a small input, TF32 off, with the same uniforms: the FPN
+    levels, the RPN's outputs, and train_forward's nine losses and
+    normalizer with a backward (K1a/K1b, K2 and K3 on the card, their plain
+    versions on the CPU). Smaller proposal pools than the slice's: the
+    order of near-equal proposal scores decides which uniform each
+    proposal draws, and a large pool on a 128x160 input holds near-ties
+    that rounding can reorder."""
+    from lgd_tpu_torch.engine.train_step import draw_uniforms
+    from lgd_tpu_torch.models.distillator import build_model
+
+    cfg = rcnn_cfg(["TPU.COMPUTE_DTYPE", "float32",
+                    "MODEL.DISTILLATOR.TEACHER.ADD_CONTEXT_BOX", True,
+                    "MODEL.RPN.PRE_NMS_TOPK_TRAIN", 200,
+                    "MODEL.RPN.POST_NMS_TOPK_TRAIN", 100,
+                    "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", 64])
+    cpu = build_model(cfg, dtype=torch.float32, device="cpu", seed=1)
+    gpu = build_model(cfg, dtype=torch.float32, device=device, seed=1)
+    g = torch.Generator().manual_seed(0)
+    images = torch.rand(2, 3, 128, 160, generator=g) * 255
+    sizes = torch.tensor([[128, 160], [100, 120]])
+    gt = card_vs_cpu_gt(cfg)
+    uniforms = draw_uniforms(cpu.sampling_shapes(2, (128, 160),
+                                                 gt.boxes.shape[1]),
+                             torch.Generator().manual_seed(1), "cpu")
+    levels = cfg.MODEL.RPN.IN_FEATURES
+
+    def outputs(model, dev):
+        with torch.no_grad():
+            _, feats = model.student(images.to(dev), sizes.to(dev))
+            out = [t.cpu() for t in [*(feats[k] for k in levels),
+                                     *model.student.rpn(feats)]]
+        u = {who: {k: v.to(dev) for k, v in d.items()}
+             for who, d in uniforms.items()}
+        losses, norm = model.train_forward(images.to(dev), sizes.to(dev),
+                                           gt.to(dev), 1.0,
+                                           torch.tensor(100.0, device=dev),
+                                           uniforms=u)
+        check(tuple(sorted(losses)) == RCNN_LOSSES, sorted(losses))
+        sum(losses[k] for k in sorted(losses)).backward()
+        out += [losses[k].detach().cpu() for k in sorted(losses)]
+        return out + [norm.cpu()]
+
+    zero_launches()
+    with NoTF32():
+        got = outputs(gpu, device)
+    torch.cuda.synchronize()
+    launched = read_launches()
+    check(launched == expect_launches({"K1a": 5, "K1b": 5, "K2": 2,
+                                       "K3 forward": 2, "K3 backward": 2}, 1),
+          f"card train_forward launched {launched}")
+    want = outputs(cpu, "cpu")
+    check(read_launches() == launched, "the CPU model launched a kernel")
+    compare_card_cpu([*levels, "rpn logits", "rpn deltas", *RCNN_LOSSES,
+                      "loss_normalizer"], got, want)
 
 
 def main():
@@ -736,15 +1345,38 @@ def main():
     device = torch.device("cuda", 0)
     card = card_header()
     build_kernels()
-    records = {}
+    records, paths = {}, {}
     phase_nms(device)
+    phase_nms_rpn(device)
     records["K1a"], records["K1b"] = phase_attention(device, card)
-    records["K2"] = phase_slice(device, card)
-    model, cfg, records["K1a"]["launches"], records["K1b"]["launches"] = (
-        phase_train(device, card))
-    phase_eval_teacher(model, cfg, device, card)
+    records["K3 forward"], records["K3 backward"] = phase_roi_align(device,
+                                                                    card)
+    # the main paths, each run with the launch counts set to 0 just before
+    paths["RetinaNet inference"], records["K2"] = phase_slice(device, card)
+    model, paths["RetinaNet training"] = phase_train(
+        device, card, train_cfg(), "RetinaNet", TRAIN_STEPS, TIMED_STEPS, 3,
+        {"K1a": 5, "K1b": 5}, RETINANET_LOSSES)
+    phase_eval_teacher(model, train_cfg(), device, card,
+                       {"K1a": 5, "K2": 1})
     del model
+    torch.cuda.empty_cache()
     phase_card_vs_cpu(device)
+    paths["R-CNN inference"] = phase_rcnn_inference(device, card)
+    rcnn_step = {"K1a": 5, "K1b": 5, "K2": 2, "K3 forward": 2,
+                 "K3 backward": 2}
+    model, paths["R-CNN training"] = phase_train(
+        device, card, rcnn_train_cfg(), "Faster R-CNN", RCNN_TRAIN_STEPS,
+        RCNN_TIMED_STEPS, 2, rcnn_step, RCNN_LOSSES)
+    phase_eval_teacher(model, rcnn_train_cfg(), device, card,
+                       {"K1a": 5, "K2": 2, "K3 forward": 1})
+    del model
+    torch.cuda.empty_cache()
+    phase_rcnn_card_vs_cpu(device)
+    for name, launches in paths.items():
+        log(f"launches on the {name} path: {launches}")
+    for name in records:
+        records[name]["launches"] = sum(p[name] for p in paths.values())
+        check(records[name]["launches"] > 0, f"{name} never ran on a path")
     kernels = [
         {"name": "greedy_keep_sorted", "route": "cuda",
          "source": "lgd_tpu_torch/csrc/nms.cu",
@@ -755,6 +1387,14 @@ def main():
         {"name": "attention_bwd", "route": "cuda",
          "source": "lgd_tpu_torch/csrc/attention.cu",
          "replaces": "lgd_tpu/ops/attention.py:130", **records["K1b"]},
+        {"name": "roi_align_fwd", "route": "cuda",
+         "source": "lgd_tpu_torch/csrc/roi_align.cu",
+         "replaces": "lgd_tpu/ops/roi_align.py:414",
+         **records["K3 forward"]},
+        {"name": "roi_align_bwd", "route": "cuda",
+         "source": "lgd_tpu_torch/csrc/roi_align.cu",
+         "replaces": "lgd_tpu/ops/roi_align.py:486",
+         **records["K3 backward"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,11 @@
 
 One ``train_step(state, batch)`` runs the student forward, the dynamic
 teacher, the distill loss, the backward, both optimizer updates and the
-loss normalizer. The phase schedule (reference train.py:184-189, distill
+loss normalizer. A student that samples (the R-CNN RPN and ROI heads) gets
+its uniforms from the state's ``torch.Generator`` on the model's device,
+seeded from SEED (17 while SEED is negative, its default), in the shapes
+the model's ``sampling_shapes`` names; the JAX package draws them from a
+per-step key of its ``sampling`` stream instead. The phase schedule (reference train.py:184-189, distill
 on or off; train.py:205-207, the pre-freeze of the student backbone) is
 plain Python on the step counter, where the JAX package traces it.
 The parameters live in the model and are updated in place; the state holds
@@ -29,6 +33,7 @@ class TrainState:
     tea_opt: Dict                 # optimizer state of {teacher}
     step: int
     loss_normalizer: torch.Tensor  # RetinaNet EMA normalizer, float32 scalar
+    generator: torch.Generator     # the sample's uniforms, on the device
 
 
 def _frozen(name: str, freeze_at: int) -> bool:
@@ -71,6 +76,18 @@ def batch_to_device(batch: Dict, device) -> Dict:
             "gt": batch["gt"].to(device)}
 
 
+DEFAULT_SAMPLING_SEED = 17
+
+
+def draw_uniforms(shapes, generator: torch.Generator, device):
+    """Uniforms in [0, 1) for every shape of a (nested) dict of shapes, in
+    the dict's order."""
+    if isinstance(shapes, dict):
+        return {k: draw_uniforms(v, generator, device)
+                for k, v in shapes.items()}
+    return torch.rand(shapes, generator=generator, device=device)
+
+
 def make_train_step(cfg, model) -> Tuple[Callable, Callable]:
     """Returns (init_state, train_step) for ``model``, a distillator with
     ``student``, ``teacher`` and ``adapter`` submodules."""
@@ -92,21 +109,28 @@ def make_train_step(cfg, model) -> Tuple[Callable, Callable]:
 
     def init_state() -> TrainState:
         device = next(model.parameters()).device
+        seed = int(cfg.SEED) if int(cfg.SEED) >= 0 else DEFAULT_SAMPLING_SEED
         return TrainState(
             stu_opt=stu_solver.init({k: params[k] for k in stu_names}),
             tea_opt=tea_solver.init({k: params[k] for k in tea_names}),
             step=0,
-            loss_normalizer=torch.tensor(100.0, device=device))
+            loss_normalizer=torch.tensor(100.0, device=device),
+            generator=torch.Generator(device).manual_seed(seed))
 
     def train_step(state: TrainState, batch: Dict):
         """batch: device tensors as ``batch_to_device`` makes them.
         Returns (new state, metrics as device scalars)."""
         step = state.step
         distill_flag, backbone_gate = phase(cfg, step)
+        images, gt = batch["image"], batch["gt"]
+        uniforms = draw_uniforms(
+            model.sampling_shapes(images.shape[0], tuple(images.shape[-2:]),
+                                  gt.boxes.shape[1]),
+            state.generator, images.device)
         with record_function("train_step.forward"):
             losses, new_norm = model.train_forward(
-                batch["image"], batch["image_size"], batch["gt"],
-                distill_flag, state.loss_normalizer)
+                images, batch["image_size"], gt, distill_flag,
+                state.loss_normalizer, uniforms=uniforms)
             total = sum(losses[k] for k in sorted(losses))
         total.backward()
 
@@ -133,6 +157,7 @@ def make_train_step(cfg, model) -> Tuple[Callable, Callable]:
         metrics["tea_lr"] = tea_solver.schedule(step)
         metrics["distill_flag"] = distill_flag
         return TrainState(stu_opt=stu_opt, tea_opt=tea_opt, step=step + 1,
-                          loss_normalizer=new_norm.detach()), metrics
+                          loss_normalizer=new_norm.detach(),
+                          generator=state.generator), metrics
 
     return init_state, train_step

@@ -29,15 +29,16 @@ logger = logging.getLogger(__name__)
 
 def do_test(cfg, model, device, batch_size: int = 8,
             eval_teacher: bool = False) -> Dict:
-    """COCO evaluation of ``model`` on every dataset in cfg.DATASETS.TEST.
-    Returns {"bbox": {"AP": ...}} for one dataset, else {name: ...}."""
+    """COCO evaluation of ``model`` (over its ``num_classes`` classes) on
+    every dataset in cfg.DATASETS.TEST. Returns {"bbox": {"AP": ...}} for
+    one dataset, else {name: ...}."""
     device = torch.device(device)
     results = {}
     for dataset_name in cfg.DATASETS.TEST:
         dicts = get_dataset_dicts(dataset_name)
         loader = TestLoader(cfg, dicts, batch_size=batch_size)
         evaluator = COCOEvaluator(gt_dataset=dicts,
-                                  num_classes=cfg.MODEL.RETINANET.NUM_CLASSES)
+                                  num_classes=model.num_classes)
 
         num_warmup = min(5, max(len(loader) // batch_size - 1, 0))
         compute_time, n_timed = 0.0, 0

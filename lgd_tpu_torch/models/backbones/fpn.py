@@ -1,29 +1,37 @@
-"""Feature Pyramid Network with the RetinaNet p6/p7 top (port of
-lgd_tpu/models/backbones/fpn.py), NCHW. Submodule names match the flax
-module: ``lateral_<in>``, ``output_p<l>``, ``top_p6``, ``top_p7``."""
+"""Feature Pyramid Network with the RetinaNet p6/p7 top or the R-CNN
+max-pool p6 (port of lgd_tpu/models/backbones/fpn.py), NCHW. Submodule
+names match the flax module: ``lateral_<in>``, ``output_p<l>``, ``top_p6``,
+``top_p7``."""
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import Conv2d
+from ..layers import Conv2d, feature_strides
 
 
 class FPN(nn.Module):
-    """{p_lowest..p_top} from bottom-up features, with the p6p7 top block
-    (detectron2 ``LastLevelP6P7``) fed from ``top_block_in_feature``."""
+    """{p_lowest..p_top} from bottom-up features, with a top block:
+    ``"p6p7"`` (detectron2 ``LastLevelP6P7``, fed from
+    ``top_block_in_feature``) or ``"maxpool"`` (``LastLevelMaxPool``: p6 =
+    the 1x1, stride-2 max pool of the last level)."""
 
     def __init__(self, in_features: Sequence[str],
                  in_channels: Sequence[int], in_strides: Sequence[int],
-                 out_channels: int = 256, top_block_in_feature: str = "res5",
+                 out_channels: int = 256, top_block: str = "p6p7",
+                 top_block_in_feature: str = "res5",
                  top_block_in_channels: int = 2048,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
+        if top_block not in ("p6p7", "maxpool"):
+            raise ValueError(f"unknown FPN top block {top_block!r}")
         self.in_features = tuple(in_features)
+        self.top_block = top_block
         self.top_block_in_feature = top_block_in_feature
         self.lowest_level = {4: 2, 8: 3, 16: 4, 32: 5}[in_strides[0]]
         levels = range(self.lowest_level, self.lowest_level + len(in_features))
@@ -34,12 +42,13 @@ class FPN(nn.Module):
             self.add_module(f"output_p{lvl}", Conv2d(
                 out_channels, out_channels, 3, padding=1,
                 compute_dtype=dtype))
-        # explicit symmetric padding 1 on the stride-2 convs (detectron2's
-        # Conv2d(3, stride=2, padding=1); lgd_tpu/models/backbones/fpn.py:83-94)
-        self.top_p6 = Conv2d(top_block_in_channels, out_channels, 3, stride=2,
-                             padding=1, compute_dtype=dtype)
-        self.top_p7 = Conv2d(out_channels, out_channels, 3, stride=2,
-                             padding=1, compute_dtype=dtype)
+        if top_block == "p6p7":
+            # explicit symmetric padding 1 on the stride-2 convs (detectron2's
+            # Conv2d(3, stride=2, padding=1); lgd_tpu/models/backbones/fpn.py:83-94)
+            self.top_p6 = Conv2d(top_block_in_channels, out_channels, 3,
+                                 stride=2, padding=1, compute_dtype=dtype)
+            self.top_p7 = Conv2d(out_channels, out_channels, 3, stride=2,
+                                 padding=1, compute_dtype=dtype)
 
     def forward(self, bottom_up: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
@@ -54,10 +63,41 @@ class FPN(nn.Module):
             lvl = self.lowest_level + i
             outputs[f"p{lvl}"] = getattr(self, f"output_p{lvl}")(m)
         last = self.lowest_level + len(merged) - 1
-        src = (bottom_up[self.top_block_in_feature]
-               if self.top_block_in_feature in bottom_up
-               else outputs[self.top_block_in_feature])
-        p6 = self.top_p6(src)
-        outputs[f"p{last + 1}"] = p6
-        outputs[f"p{last + 2}"] = self.top_p7(F.relu(p6))
+        if self.top_block == "maxpool":
+            outputs[f"p{last + 1}"] = F.max_pool2d(outputs[f"p{last}"], 1, 2)
+        else:
+            src = (bottom_up[self.top_block_in_feature]
+                   if self.top_block_in_feature in bottom_up
+                   else outputs[self.top_block_in_feature])
+            p6 = self.top_p6(src)
+            outputs[f"p{last + 1}"] = p6
+            outputs[f"p{last + 2}"] = self.top_p7(F.relu(p6))
         return outputs
+
+
+def build_fpn(cfg, top_block: str, dtype: torch.dtype) -> FPN:
+    """The FPN over the ResNet trunk's MODEL.FPN.IN_FEATURES; the p6p7 top
+    is fed from res5."""
+    in_feats = tuple(cfg.MODEL.FPN.IN_FEATURES)
+    res2 = cfg.MODEL.RESNETS.RES2_OUT_CHANNELS
+    channels = {f"res{i + 2}": res2 * 2 ** i for i in range(4)}
+    return FPN(in_features=in_feats,
+               in_channels=[channels[f] for f in in_feats],
+               in_strides=feature_strides(in_feats),
+               out_channels=cfg.MODEL.FPN.OUT_CHANNELS, top_block=top_block,
+               top_block_in_feature="res5",
+               top_block_in_channels=channels["res5"], dtype=dtype)
+
+
+def init_trunk_(student: nn.Module, generator: torch.Generator):
+    """Random weights of a student's ``bottom_up`` ResNet and ``fpn``, drawn
+    like the flax initializers: lecun-normal backbone convs, glorot-uniform
+    FPN convs with zero biases; FrozenBN stays the identity."""
+    for m in student.bottom_up.modules():
+        if isinstance(m, Conv2d):
+            nn.init.normal_(m.weight, 0.0, 1.0 / math.sqrt(
+                m.weight[0].numel()), generator=generator)
+    for m in student.fpn.modules():
+        if isinstance(m, Conv2d):
+            nn.init.xavier_uniform_(m.weight, generator=generator)
+            nn.init.zeros_(m.bias)

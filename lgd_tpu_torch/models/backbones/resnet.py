@@ -128,7 +128,7 @@ def build_resnet(cfg, dtype: torch.dtype = torch.bfloat16) -> ResNet:
     if any(r.DEFORM_ON_PER_STAGE):
         raise NotImplementedError(
             "deformable ResNet stages (DCNv2, kernel K4) come with the DCN "
-            "slice (ROADMAP.md, queue item 8)")
+            "slice (ROADMAP.md, queue item 4)")
     return ResNet(
         depth=r.DEPTH,
         num_groups=r.NUM_GROUPS,

@@ -1,5 +1,5 @@
 """Distillator meta-architectures: student + DynamicTeacher + adapter (port
-of lgd_tpu/models/distillator.py; RetinaNet only so far).
+of lgd_tpu/models/distillator.py; RetinaNet and Faster R-CNN so far).
 
 ``train_forward`` computes the whole LGD loss dict of one step:
 
@@ -30,14 +30,17 @@ from ..structures import BatchedDetections, BatchedInstances
 from .heads.retinanet import (
     AnchorCache,
     RetinaNetCT,
+    build_anchors,
     init_retinanet_,
     label_anchors,
     retinanet_inference,
     retinanet_losses,
 )
+from .backbones.fpn import init_trunk_
 from .layers import Conv2d
 from .lgd.adapters import build_adapter
 from .lgd.dynamic_teacher import DynamicTeacher
+from .rcnn.rcnn import RCNNCT
 
 META_ARCHS = {}
 
@@ -83,17 +86,20 @@ def _lecun_normal_(modules, generator: torch.Generator):
             nn.init.zeros_(m.bias)
 
 
-@register_meta_arch("DistillatorRetinaNet")
-class DistillatorRetinaNet(nn.Module):
-    """reference models/distillator.py:23-114. The student computes in
-    ``dtype``, as does the adapter; the teacher computes in float32."""
+class BaseDistillator(nn.Module):
+    """What every distillator shares (lgd_tpu/models/distillator.py:81-136):
+    the float32 teacher, the adapter, the distill loss and their seeded
+    initialization. Subclasses give the student, which computes in
+    ``dtype``, as does the adapter, and the detector's class count
+    ``num_classes``."""
 
-    def __init__(self, cfg, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, cfg, student: nn.Module,
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.student = student
         t = cfg.MODEL.DISTILLATOR.TEACHER
-        self.student = RetinaNetCT(cfg, dtype=dtype)
         self.teacher = DynamicTeacher(
             num_classes=cfg.NUM_CLASSES,
             channels=cfg.MODEL.FPN.OUT_CHANNELS,
@@ -105,15 +111,17 @@ class DistillatorRetinaNet(nn.Module):
         )
         self.adapter = build_adapter(cfg, dtype=dtype)
         self.distill_lambda = float(cfg.MODEL.DISTILLATOR.LAMBDA)
-        self.anchors = AnchorCache(cfg)
 
     def init_weights_(self, generator: torch.Generator):
-        init_retinanet_(self.student, generator)
+        self.init_student_(generator)
         _lecun_normal_(self.teacher.modules(), generator)
         _lecun_normal_(self.adapter.modules(), generator)
 
-    def _head_features(self, feats: Dict[str, torch.Tensor]):
-        return [feats[f] for f in self.cfg.MODEL.RETINANET.IN_FEATURES]
+    def sampling_shapes(self, batch_size: int, padded_hw,
+                        num_gt: int) -> Dict[str, Dict[str, tuple]]:
+        """The uniforms ``train_forward`` takes, by name and shape: none
+        unless the student samples."""
+        return {}
 
     def distill_loss(self, stu_feats: Dict[str, torch.Tensor],
                      tea_feats: Dict[str, torch.Tensor],
@@ -133,14 +141,31 @@ class DistillatorRetinaNet(nn.Module):
         bs = stu_feats[keys[0]].shape[0]
         return self.distill_lambda * total_se / (bs * total_count)
 
+
+@register_meta_arch("DistillatorRetinaNet")
+class DistillatorRetinaNet(BaseDistillator):
+    """reference models/distillator.py:23-114."""
+
+    def __init__(self, cfg, dtype: torch.dtype = torch.bfloat16):
+        super().__init__(cfg, RetinaNetCT(cfg, dtype=dtype), dtype)
+        self.num_classes = cfg.MODEL.RETINANET.NUM_CLASSES
+        self.anchors = AnchorCache(lambda hw: build_anchors(cfg, hw))
+
+    def init_student_(self, generator: torch.Generator):
+        init_retinanet_(self.student, generator)
+
+    def _head_features(self, feats: Dict[str, torch.Tensor]):
+        return [feats[f] for f in self.cfg.MODEL.RETINANET.IN_FEATURES]
+
     def train_forward(self, images: torch.Tensor, image_sizes: torch.Tensor,
                       gt: BatchedInstances, distill_flag: float,
-                      loss_normalizer: torch.Tensor):
+                      loss_normalizer: torch.Tensor, uniforms=None):
         """One LGD training forward. images (B, 3, H, W) float32 BGR on the
         model's device; image_sizes (B, 2) (h, w); gt on the same device.
         Returns (losses incl. '.tea' and 'loss_distill', new normalizer):
         the normalizer goes through the student losses, then the teacher's
-        (lgd_tpu/models/distillator.py:153-180)."""
+        (lgd_tpu/models/distillator.py:153-180). RetinaNet samples nothing:
+        ``uniforms`` is unused."""
         padded_hw = tuple(images.shape[-2:])
         anchors, _ = self.anchors(padded_hw, images.device)
         _, feats = self.student(images, image_sizes)
@@ -179,3 +204,71 @@ class DistillatorRetinaNet(nn.Module):
         logits, deltas = self.student.predict(self._head_features(feats))
         return retinanet_inference(self.cfg, logits, deltas, anchors, counts,
                                    image_sizes)
+
+
+@register_meta_arch("DistillatorGeneralizedRCNN")
+class DistillatorGeneralizedRCNN(BaseDistillator):
+    """reference models/distillator.py:117-198: the '.tea' losses re-run
+    the student's whole RPN and ROI pipeline on the teacher's p2-p6
+    (frcnn.py:59-76), with proposals of their own."""
+
+    def __init__(self, cfg, dtype: torch.dtype = torch.bfloat16):
+        super().__init__(cfg, RCNNCT(cfg, dtype=dtype), dtype)
+        self.num_classes = cfg.MODEL.ROI_HEADS.NUM_CLASSES
+
+    def init_student_(self, generator: torch.Generator):
+        """The flax initializers: the trunk's (see ``init_trunk_``),
+        normal(0.01) RPN convs and class scores, normal(0.001) box deltas,
+        lecun-normal FCs, zero biases."""
+        s = self.student
+        init_trunk_(s, generator)
+        head = s.rpn.head
+        predictor = s.roi_heads.box_predictor
+        for m, std in ((head.conv, 0.01), (head.objectness_logits, 0.01),
+                       (head.anchor_deltas, 0.01),
+                       (predictor.cls_score, 0.01),
+                       (predictor.bbox_pred, 0.001)):
+            nn.init.normal_(m.weight, 0.0, std, generator=generator)
+            nn.init.zeros_(m.bias)
+        _lecun_normal_(s.roi_heads.box_head.modules(), generator)
+
+    def sampling_shapes(self, batch_size: int, padded_hw,
+                        num_gt: int) -> Dict[str, Dict[str, tuple]]:
+        """The student's uniforms for its pass over its own features, then
+        for its pass over the teacher's."""
+        shapes = self.student.sampling_shapes(batch_size, padded_hw, num_gt)
+        return {"student": shapes, "teacher": shapes}
+
+    def train_forward(self, images: torch.Tensor, image_sizes: torch.Tensor,
+                      gt: BatchedInstances, distill_flag: float,
+                      loss_normalizer: torch.Tensor,
+                      uniforms: Dict[str, Dict[str, torch.Tensor]]):
+        """One LGD training forward (as DistillatorRetinaNet's); the loss
+        normalizer passes through unchanged. ``uniforms`` holds the
+        sample's uniforms of both student passes, shaped by
+        ``sampling_shapes``."""
+        padded_hw = tuple(images.shape[-2:])
+        _, feats = self.student(images, image_sizes)
+        losses = self.student.predict(feats, image_sizes, gt,
+                                      uniforms["student"])
+        tea_feats, _, _ = self.teacher(gt, feats, padded_hw)
+        losses_tea = self.student.predict(tea_feats, image_sizes, gt,
+                                          uniforms["teacher"])
+        losses.update({k + ".tea": v for k, v in losses_tea.items()})
+        losses["loss_distill"] = self.distill_loss(feats, tea_feats,
+                                                   distill_flag)
+        return losses, loss_normalizer
+
+    @torch.no_grad()
+    def inference(self, images: torch.Tensor, image_sizes: torch.Tensor,
+                  gt: Optional[BatchedInstances] = None,
+                  eval_teacher: bool = False) -> BatchedDetections:
+        """Student features, with ``eval_teacher`` replaced by the
+        teacher's, through the RPN, the box head and NMS."""
+        padded_hw = tuple(images.shape[-2:])
+        _, feats = self.student(images, image_sizes)
+        if eval_teacher:
+            if gt is None:
+                raise ValueError("eval_teacher needs the GT annotations")
+            feats, _, _ = self.teacher(gt, feats, padded_hw)
+        return self.student.infer_boxes(feats, image_sizes)

@@ -22,12 +22,11 @@ from ...ops.nms import batched_nms_mask, greedy_keep_sorted, topk_detections
 from ...ops.topk import topk_flat_pairs
 from ...structures import BatchedDetections, BatchedInstances, Box2BoxTransform
 from ...structures import boxes as box_ops
-from ..backbones.fpn import FPN
+from ..backbones.fpn import build_fpn, init_trunk_
 from ..backbones.resnet import build_resnet
-from ..layers import Conv2d
+from ..layers import Conv2d, feature_strides, normalize_images
 from .anchors import AnchorGenerator, feature_grid_sizes
 
-_LEVEL_STRIDES = {"p2": 4, "p3": 8, "p4": 16, "p5": 32, "p6": 64, "p7": 128}
 
 
 def permute_to_n_hwa_k(t: torch.Tensor, k: int) -> torch.Tensor:
@@ -79,21 +78,9 @@ class RetinaNetCT(nn.Module):
         if "swint" in cfg.MODEL.BACKBONE.NAME:
             raise NotImplementedError(
                 "the Swin-T backbone comes with the Swin slice (ROADMAP.md, "
-                "queue item 9)")
+                "queue item 11)")
         self.bottom_up = build_resnet(cfg, dtype=dtype)
-        in_feats = tuple(cfg.MODEL.FPN.IN_FEATURES)
-        res2 = cfg.MODEL.RESNETS.RES2_OUT_CHANNELS
-        channels = {f"res{i + 2}": res2 * 2 ** i for i in range(4)}
-        self.fpn = FPN(
-            in_features=in_feats,
-            in_channels=[channels[f] for f in in_feats],
-            in_strides=[{"res2": 4, "res3": 8, "res4": 16, "res5": 32}[f]
-                        for f in in_feats],
-            out_channels=cfg.MODEL.FPN.OUT_CHANNELS,
-            top_block_in_feature="res5",
-            top_block_in_channels=channels["res5"],
-            dtype=dtype,
-        )
+        self.fpn = build_fpn(cfg, "p6p7", dtype)
         num_anchors = (len(cfg.MODEL.ANCHOR_GENERATOR.SIZES[0])
                        * len(cfg.MODEL.ANCHOR_GENERATOR.ASPECT_RATIOS[0]))
         self.head = RetinaNetHead(
@@ -109,19 +96,8 @@ class RetinaNetCT(nn.Module):
 
     def normalize(self, images: torch.Tensor,
                   image_sizes: torch.Tensor) -> torch.Tensor:
-        """(x - mean) / std, then zero the padding again, so padding is
-        exactly 0 after normalization (detectron2 pads after normalizing).
-        images (B, 3, H, W); image_sizes (B, 2) (h, w)."""
-        kw = dict(dtype=images.dtype, device=images.device)
-        mean = torch.tensor(self.pixel_mean, **kw)[:, None, None]
-        std = torch.tensor(self.pixel_std, **kw)[:, None, None]
-        x = (images - mean) / std
-        H, W = x.shape[-2:]
-        yy = torch.arange(H, device=x.device)[None, :, None]
-        xx = torch.arange(W, device=x.device)[None, None, :]
-        inside = ((yy < image_sizes[:, 0, None, None])
-                  & (xx < image_sizes[:, 1, None, None]))
-        return torch.where(inside[:, None], x, 0.0)
+        return normalize_images(images, image_sizes, self.pixel_mean,
+                                self.pixel_std)
 
     def forward(self, images: torch.Tensor, image_sizes: torch.Tensor):
         """-> (raw bottom-up features, FPN features), both dicts."""
@@ -139,18 +115,10 @@ class RetinaNetCT(nn.Module):
 
 
 def init_retinanet_(model: RetinaNetCT, generator: torch.Generator):
-    """Random weights drawn like the flax initializers: lecun-normal
-    backbone convs, glorot-uniform FPN, normal(0.01) head with the
-    focal-loss prior on the class bias; FrozenBN stays the identity."""
-    for m in model.bottom_up.modules():
-        if isinstance(m, Conv2d):
-            fan_in = m.weight[0].numel()
-            nn.init.normal_(m.weight, 0.0, 1.0 / math.sqrt(fan_in),
-                            generator=generator)
-    for m in model.fpn.modules():
-        if isinstance(m, Conv2d):
-            nn.init.xavier_uniform_(m.weight, generator=generator)
-            nn.init.zeros_(m.bias)
+    """Random weights drawn like the flax initializers: the trunk's (see
+    ``init_trunk_``), then a normal(0.01) head with the focal-loss prior on
+    the class bias."""
+    init_trunk_(model, generator)
     head = model.head
     for m in head.modules():
         if isinstance(m, Conv2d):
@@ -163,7 +131,7 @@ def init_retinanet_(model: RetinaNetCT, generator: torch.Generator):
 def build_anchors(cfg, padded_hw) -> Tuple[np.ndarray, List[int]]:
     """(R, 4) anchors over all levels for one padded canvas, and the count
     per level (lgd_tpu/models/heads/retinanet.py:184-199)."""
-    strides = [_LEVEL_STRIDES[f] for f in cfg.MODEL.RETINANET.IN_FEATURES]
+    strides = feature_strides(cfg.MODEL.RETINANET.IN_FEATURES)
     gen = AnchorGenerator(
         sizes=cfg.MODEL.ANCHOR_GENERATOR.SIZES,
         aspect_ratios=cfg.MODEL.ANCHOR_GENERATOR.ASPECT_RATIOS,
@@ -283,16 +251,17 @@ def retinanet_inference(cfg, pred_logits: torch.Tensor,
 
 
 class AnchorCache:
-    """Anchors per padded canvas, built once on the host and kept on the
+    """Anchors per padded canvas, built once on the host by ``build``
+    (padded_hw -> (anchors (R, 4) numpy, count per level)) and kept on the
     device (they depend only on the canvas and the config)."""
 
-    def __init__(self, cfg):
-        self.cfg = cfg
+    def __init__(self, build):
+        self.build = build
         self._cache: Dict[tuple, Tuple[torch.Tensor, List[int]]] = {}
 
     def __call__(self, padded_hw, device) -> Tuple[torch.Tensor, List[int]]:
         key = (tuple(padded_hw), str(device))
         if key not in self._cache:
-            anchors, counts = build_anchors(self.cfg, tuple(padded_hw))
+            anchors, counts = self.build(tuple(padded_hw))
             self._cache[key] = (torch.from_numpy(anchors).to(device), counts)
         return self._cache[key]

@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 
 class Conv2d(nn.Conv2d):
@@ -26,6 +27,21 @@ class Conv2d(nn.Conv2d):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in ``compute_dtype`` with float32
+    parameters, as flax's ``nn.Dense(dtype=...)``."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class FrozenBatchNorm(nn.Module):
@@ -56,5 +72,30 @@ def get_norm(norm: str, num_features: int) -> Optional[nn.Module]:
     if norm == "GN":
         raise NotImplementedError(
             "GroupNorm comes with the FCOS/ATSS/POTO slice (ROADMAP.md, queue "
-            "item 6)")
+            "item 8)")
     raise ValueError(f"Unknown norm: {norm}")
+
+
+def feature_strides(names):
+    """Stride of each named feature map of the ResNet FPN trunk
+    (lgd_tpu/models/layers.py:127): res<l> and p<l> at 2 ** l. ``cfg`` is
+    the JAX package's signature; the dilated res5 and the Swin stages are
+    not ported."""
+    return [2 ** int(n[-1]) for n in names]
+
+
+def normalize_images(images: torch.Tensor, image_sizes: torch.Tensor,
+                     pixel_mean, pixel_std) -> torch.Tensor:
+    """(x - mean) / std, then zero the padding again, so padding is exactly
+    0 after normalization (detectron2 pads after normalizing). images
+    (B, 3, H, W); image_sizes (B, 2) (h, w)."""
+    kw = dict(dtype=images.dtype, device=images.device)
+    mean = torch.tensor(pixel_mean, **kw)[:, None, None]
+    std = torch.tensor(pixel_std, **kw)[:, None, None]
+    x = (images - mean) / std
+    H, W = x.shape[-2:]
+    yy = torch.arange(H, device=x.device)[None, :, None]
+    xx = torch.arange(W, device=x.device)[None, None, :]
+    inside = ((yy < image_sizes[:, 0, None, None])
+              & (xx < image_sizes[:, 1, None, None]))
+    return torch.where(inside[:, None], x, 0.0)

@@ -97,7 +97,7 @@ class DynamicTeacher(nn.Module):
         if use_seg_map:
             raise NotImplementedError(
                 "the LOAD_LABELMAP seg-mask teacher comes with Mask R-CNN "
-                "(ROADMAP.md, port queue)")
+                "(ROADMAP.md, port queue item 9)")
         if interact_pattern not in ("stuGuided", "labelGuided",
                                     "student_fill", "teacher_fill"):
             raise ValueError(f"unknown INTERACT_PATTERN {interact_pattern!r}")

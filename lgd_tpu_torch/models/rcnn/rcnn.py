@@ -1,0 +1,134 @@
+"""Generalized R-CNN student, FPN trunk, box heads only (port of
+lgd_tpu/models/rcnn/rcnn.py), NCHW.
+
+The decomposed API of the reference RCNNCT: ``forward`` gives the raw and
+FPN features; ``predict`` runs the RPN and the ROI heads on any feature
+pyramid (the student's, or the teacher's for the '.tea' losses) and returns
+the loss dict; ``infer_boxes`` gives the detections. Proposals are fixed
+(B, POST_NMS_TOPK) slabs. ``predict`` takes the sample's uniforms as an
+argument, shaped by ``sampling_shapes``, where the JAX package draws them
+from its ``sampling`` stream: ``rpn`` (B, R) for the anchor sample, then
+``roi_sample`` and ``roi_order`` (B, POST_NMS_TOPK_TRAIN + M) for the
+proposal sample, in the order JAX draws them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn as nn
+
+from ...structures import BatchedDetections, BatchedInstances
+from ..backbones.fpn import build_fpn
+from ..backbones.resnet import build_resnet
+from ..heads.retinanet import AnchorCache
+from ..layers import feature_strides, normalize_images
+from .roi_heads import (
+    StandardROIHeads,
+    fast_rcnn_inference,
+    fast_rcnn_losses,
+    label_and_sample_proposals,
+)
+from .rpn import (
+    RPN,
+    generate_proposals,
+    label_rpn_anchors,
+    rpn_anchors,
+    rpn_losses,
+)
+
+
+class RCNNCT(nn.Module):
+    """Decomposed Faster R-CNN student on a ResNet FPN trunk with the
+    max-pool p6 (detectron2 Base-RCNN-FPN)."""
+
+    def __init__(self, cfg, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        name = cfg.MODEL.BACKBONE.NAME
+        if "fpn" not in name or "swint" in name:
+            raise NotImplementedError(
+                f"R-CNN trunk {name!r}: the port has the ResNet FPN trunk; "
+                "C4 and DilatedC5 come with ROADMAP.md port queue item 10, "
+                "Swin-T with item 11")
+        if cfg.MODEL.ROI_HEADS.NAME != "StandardROIHeads":
+            raise NotImplementedError(
+                f"ROI heads {cfg.MODEL.ROI_HEADS.NAME!r} come with the C4 "
+                "variants (ROADMAP.md, port queue item 10)")
+        self.cfg = cfg
+        self.bottom_up = build_resnet(cfg, dtype=dtype)
+        self.fpn = build_fpn(cfg, "maxpool", dtype)
+        out_channels = cfg.MODEL.FPN.OUT_CHANNELS
+        self.rpn = RPN(cfg, out_channels, dtype=dtype)
+        self.roi_heads = StandardROIHeads(cfg, out_channels, dtype=dtype)
+        self.pixel_mean = tuple(cfg.MODEL.PIXEL_MEAN)
+        self.pixel_std = tuple(cfg.MODEL.PIXEL_STD)
+        self.anchors = AnchorCache(
+            lambda hw: rpn_anchors(cfg, hw, self.rpn.in_features))
+
+    def normalize(self, images: torch.Tensor,
+                  image_sizes: torch.Tensor) -> torch.Tensor:
+        return normalize_images(images, image_sizes, self.pixel_mean,
+                                self.pixel_std)
+
+    def forward(self, images: torch.Tensor, image_sizes: torch.Tensor):
+        """-> (raw bottom-up features, FPN features p2-p6), both dicts."""
+        raw = self.bottom_up(self.normalize(images, image_sizes))
+        return raw, self.fpn(raw)
+
+    def _padded_hw(self, feats: Dict[str, torch.Tensor]):
+        """The padded canvas, from the first RPN level's grid."""
+        f0 = self.rpn.in_features[0]
+        stride = feature_strides([f0])[0]
+        h, w = feats[f0].shape[-2:]
+        return (h * stride, w * stride)
+
+    def sampling_shapes(self, batch_size: int, padded_hw,
+                        num_gt: int) -> Dict[str, tuple]:
+        """Shapes of ``predict``'s uniforms for a batch on one canvas with
+        ``num_gt`` GT slots per image."""
+        anchors, _ = self.anchors(padded_hw, self.rpn.head.conv.weight.device)
+        pool = self.cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN + (
+            num_gt if self.cfg.MODEL.ROI_HEADS.PROPOSAL_APPEND_GT else 0)
+        return {"rpn": (batch_size, len(anchors)),
+                "roi_sample": (batch_size, pool),
+                "roi_order": (batch_size, pool)}
+
+    def predict(self, feats: Dict[str, torch.Tensor],
+                image_sizes: torch.Tensor, gt: BatchedInstances,
+                uniforms: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The RPN and ROI training pass on a feature pyramid; returns the
+        loss dict (reference frcnn.py:59-76). The proposals carry no
+        gradient."""
+        cfg = self.cfg
+        anchors, counts = self.anchors(self._padded_hw(feats),
+                                       image_sizes.device)
+        logits, deltas = self.rpn(feats)
+        gt_labels, matched = label_rpn_anchors(cfg, anchors, gt)
+        losses = rpn_losses(cfg, logits, deltas, gt_labels, matched, anchors,
+                            uniforms["rpn"])
+        prop_boxes, _, prop_valid = generate_proposals(
+            cfg, logits.detach(), deltas.detach(), anchors, counts,
+            image_sizes, training=True)
+        sampled = label_and_sample_proposals(
+            cfg, prop_boxes, prop_valid, gt, uniforms["roi_sample"],
+            uniforms["roi_order"])
+        scores, box_deltas = self.roi_heads.box_forward(
+            feats, sampled["boxes"], sampled["valid"])
+        losses.update(fast_rcnn_losses(cfg, scores, box_deltas, sampled, gt))
+        return losses
+
+    def infer_boxes(self, feats: Dict[str, torch.Tensor],
+                    image_sizes: torch.Tensor) -> BatchedDetections:
+        """Proposals -> box head -> per-class NMS."""
+        cfg = self.cfg
+        anchors, counts = self.anchors(self._padded_hw(feats),
+                                       image_sizes.device)
+        logits, deltas = self.rpn(feats)
+        prop_boxes, _, prop_valid = generate_proposals(
+            cfg, logits, deltas, anchors, counts, image_sizes,
+            training=False)
+        scores, box_deltas = self.roi_heads.box_forward(feats, prop_boxes,
+                                                        prop_valid)
+        return fast_rcnn_inference(cfg, scores, box_deltas, prop_boxes,
+                                   prop_valid, image_sizes)

@@ -5,7 +5,7 @@ from .nms import (
     nms_mask,
     topk_detections,
 )
-from .topk import topk_flat_pairs
+from .topk import topk_flat_pairs, topk_stable
 
 __all__ = [
     "batched_nms_mask",
@@ -14,4 +14,5 @@ __all__ = [
     "nms_mask",
     "topk_detections",
     "topk_flat_pairs",
+    "topk_stable",
 ]

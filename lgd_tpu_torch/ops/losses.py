@@ -1,5 +1,7 @@
-"""Per-element loss primitives of RetinaNet (port of the focal and
-smooth-L1 losses of lgd_tpu/ops/losses.py). Callers mask and reduce."""
+"""Per-element loss primitives (port of the focal, smooth-L1 and binary
+cross-entropy losses of lgd_tpu/ops/losses.py, and of the softmax cross
+entropy that lgd_tpu/models/rcnn/roi_heads.py writes inline). Callers mask
+and reduce."""
 
 from __future__ import annotations
 
@@ -31,3 +33,18 @@ def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor,
         return diff
     return torch.where(diff < beta, 0.5 * diff * diff / beta,
                        diff - 0.5 * beta)
+
+
+def binary_cross_entropy_with_logits(logits: torch.Tensor,
+                                     targets: torch.Tensor) -> torch.Tensor:
+    """Numerically stable BCE with logits per element."""
+    return (logits.clamp(min=0) - logits * targets
+            + torch.log1p(torch.exp(-logits.abs())))
+
+
+def softmax_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """-log_softmax(logits)[label] over the last axis: logits (..., K),
+    labels (...,) int64 -> (...,)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, labels[..., None])[..., 0]

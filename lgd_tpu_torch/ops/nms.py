@@ -107,23 +107,25 @@ greedy_keep_sorted.launches = 0
 
 
 def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
-             iou_threshold: float, keep_fn=greedy_keep_sorted) -> torch.Tensor:
+             iou_threshold: float, keep_fn=None) -> torch.Tensor:
     """Exact greedy NMS per image.
 
     boxes (B, N, 4), scores (B, N), valid (B, N) bool -> keep (B, N) bool in
     input order; suppressed and invalid entries are False. ``keep_fn`` is
-    the sweep (the kernel, or its plain version for comparison runs).
+    the sweep: the module's ``greedy_keep_sorted`` (kernel K2) when None,
+    looked up at the call, or its plain version for comparison runs.
     """
     masked = torch.where(valid, scores, NEG_INF)
     order = torch.argsort(-masked, dim=-1, stable=True)
     boxes_s = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
     valid_s = torch.gather(masked, 1, order) > NEG_INF
-    keep_s = keep_fn(boxes_s.contiguous(), valid_s, iou_threshold)
+    keep_s = (keep_fn or greedy_keep_sorted)(boxes_s.contiguous(), valid_s,
+                                             iou_threshold)
     return torch.zeros_like(keep_s).scatter_(1, order, keep_s)
 
 
 def batched_nms_mask(boxes, scores, classes, valid, iou_threshold: float,
-                     keep_fn=greedy_keep_sorted) -> torch.Tensor:
+                     keep_fn=None) -> torch.Tensor:
     """Class-aware NMS via the coordinate-offset trick (detectron2
     ``batched_nms``): each class is shifted by class * (max valid coord + 1)
     so boxes of different classes never overlap. Batched over images."""

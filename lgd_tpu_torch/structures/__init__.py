@@ -3,6 +3,7 @@ from .boxes import (
     Box2BoxTransform,
     area,
     clip,
+    nonempty,
     pairwise_intersection,
     pairwise_iou,
 )
@@ -13,6 +14,7 @@ __all__ = [
     "Box2BoxTransform",
     "area",
     "clip",
+    "nonempty",
     "pairwise_intersection",
     "pairwise_iou",
     "BatchedDetections",

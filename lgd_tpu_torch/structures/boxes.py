@@ -36,6 +36,13 @@ def clip(boxes: torch.Tensor, h, w) -> torch.Tensor:
     return torch.stack([x1, y1, x2, y2], dim=-1)
 
 
+def nonempty(boxes: torch.Tensor, threshold: float = 0.0) -> torch.Tensor:
+    """(..., 4) -> (...,) bool: width and height both above threshold."""
+    w = boxes[..., 2] - boxes[..., 0]
+    h = boxes[..., 3] - boxes[..., 1]
+    return (w > threshold) & (h > threshold)
+
+
 def pairwise_intersection(boxes1: torch.Tensor,
                           boxes2: torch.Tensor) -> torch.Tensor:
     """(..., N, 4) x (..., M, 4) -> (..., N, M) intersection areas."""

@@ -88,7 +88,7 @@ def main(args):
 
     if args.resume:
         raise NotImplementedError("--resume comes with the checkpointer "
-                                  "(ROADMAP.md, port queue item 3)")
+                                  "(ROADMAP.md, port queue item 5)")
     cfg = setup(args)
     device = torch.device(cfg.MODEL.DEVICE)
     dtype = (torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16"

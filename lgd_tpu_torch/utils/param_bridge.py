@@ -14,6 +14,11 @@ name, and only the leaves change:
 - ``params/.../bias`` -> ``....bias``;
 - ``frozen/.../{scale,bias,mean,var}`` -> the FrozenBatchNorm buffers.
 
+One weight also changes the order of its rows: the R-CNN box head's
+``fc1``. The flax head flattens its pooled (R, R, C) features; the port's
+ROIAlign writes (C, R, R), so the rows of ``box_head/fc1/kernel`` are
+reordered from (R, R, C) to (C, R, R) by the head's ``pooled_shape``.
+
 The student, the teacher and the adapter all map. Every key must map, on
 both sides: a key left over raises.
 """
@@ -69,6 +74,41 @@ def _to_torch(flax_key: str, arr: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(arr.transpose(axes) if axes else arr)
 
 
+def _pooled_shape(flax_key: str, model: torch.nn.Module):
+    """(C, R, R) of the box head whose ``fc1`` this key names, else None."""
+    if not flax_key.endswith("/box_head/fc1/kernel"):
+        return None
+    head = model.get_submodule(torch_key(flax_key)[:-len(".fc1.weight")])
+    return head.pooled_shape
+
+
+def _to_torch_model(flax_key: str, arr: np.ndarray,
+                    model: torch.nn.Module) -> np.ndarray:
+    shape = _pooled_shape(flax_key, model)
+    if shape is not None:
+        c, h, w = shape
+        arr = (np.asarray(arr).reshape(h, w, c, -1).transpose(2, 0, 1, 3)
+               .reshape(c * h * w, -1))
+    return _to_torch(flax_key, arr)
+
+
+def flax_array(flax_key: str, value: np.ndarray,
+               model: torch.nn.Module) -> np.ndarray:
+    """A port tensor's value (as numpy) in the flax layout of ``flax_key``:
+    the inverse of the mapping above, for comparing with the JAX
+    package."""
+    arr = np.asarray(value)
+    axes = _kernel_axes(flax_key, arr.ndim)
+    if axes:  # argsort inverts the permutation
+        arr = arr.transpose(np.argsort(axes))
+    shape = _pooled_shape(flax_key, model)
+    if shape is not None:
+        c, h, w = shape
+        arr = arr.reshape(c, h, w, -1).transpose(1, 2, 0, 3).reshape(
+            c * h * w, -1)
+    return np.ascontiguousarray(arr)
+
+
 def state_dict_from_flax(flat: Mapping[str, np.ndarray],
                          model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """The model's full state_dict from a flat JAX variables dict. A key
@@ -91,7 +131,8 @@ def state_dict_from_flax(flat: Mapping[str, np.ndarray],
         if tuple(want[tk].shape) != shape:
             raise ValueError(f"shape mismatch for {key} -> {tk}: {shape} vs "
                              f"{tuple(want[tk].shape)}")
-        out[tk] = torch.from_numpy(_to_torch(key, arr)).to(want[tk].dtype)
+        out[tk] = torch.from_numpy(_to_torch_model(key, arr, model)).to(
+            want[tk].dtype)
     missing = sorted(set(want) - set(out))
     if unmapped or missing:
         raise ValueError(

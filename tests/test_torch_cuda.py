@@ -1,6 +1,6 @@
-"""Kernels K2 (lgd_tpu_torch/csrc/nms.cu) and K1a/K1b
-(lgd_tpu_torch/csrc/attention.cu) on the card, against their plain PyTorch
-versions. Imports no JAX, so it runs on a machine that has only the port's
+"""Kernels K2 (lgd_tpu_torch/csrc/nms.cu), K1a/K1b
+(lgd_tpu_torch/csrc/attention.cu) and K3 (lgd_tpu_torch/csrc/roi_align.cu)
+on the card, against their plain PyTorch versions. Imports no JAX, so it runs on a machine that has only the port's
 dependencies:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from lgd_tpu_torch.ops import attention, nms
+from lgd_tpu_torch.ops import attention, nms, roi_align
 
 
 @pytest.fixture
@@ -131,3 +131,106 @@ def test_attention_wrapper_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="shared memory"):
         attention.attention_fwd(big, big, big, torch.ones(
             (1, 4096), dtype=torch.bool, device=cuda_device), 0.5)
+
+
+def _rois(device, dtype, B=3, C=16, canvas=(256, 352)):
+    """A p2-p5 pyramid and ROIs on every level, past the edges, under a
+    texel, at the s_max cap, empty; one invalid slot and an all-invalid
+    last image. Returns (levels, index, coords, valid)."""
+    g = torch.Generator().manual_seed(C)
+    H, W = canvas
+    feats = [torch.randn(B, C, H // s, W // s, generator=g).to(device, dtype)
+             for s in (4, 8, 16, 32)]
+    fixed = torch.tensor([
+        [10.3, 12.7, 40.1, 30.9], [3.0, 5.0, 3.4, 5.3],
+        [-20.0, -15.0, 60.0, 50.0], [W - 90.0, H - 60.0, W + 30.0, H + 20.0],
+        [0.0, 0.0, 224.0, 224.0], [-300.0, -200.0, W + 300.0, H + 200.0],
+        [64.0, 64.0, 64.0, 64.0], [12.0, 33.0, 150.0, 41.0]])
+    ctr = torch.rand(B, 40, 2, generator=g) * torch.tensor([W, H])
+    wh = torch.exp(torch.rand(B, 40, 2, generator=g) * 6.0) + 1.0
+    boxes = torch.cat([fixed.expand(B, -1, -1),
+                       torch.cat([ctr - wh / 2, ctr + wh / 2], -1)], 1)
+    valid = torch.ones(boxes.shape[:2], dtype=torch.bool)
+    valid[0, 2] = False
+    valid[-1] = False
+    index, coords = roi_align.roi_geometry(boxes.to(device), valid.to(device),
+                                           (4, 8, 16, 32), 7, 2)
+    return feats, index, coords, valid.flatten().to(device)
+
+
+def _bf16_ulp(x):
+    a = x.float().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_kernels_match_plain_version(cuda_device, dtype):
+    """K3 forward, summed in float32, within 1e-5 of the largest value of
+    the plain version (bfloat16 outputs within one bfloat16 ulp), and the
+    backward against autograd of the plain version on float32 copies of
+    the levels: 1e-5 of the largest value in float32 (the atomics' order
+    changes from run to run), in bfloat16 one ulp more (the rounding).
+    Invalid ROIs pool to zeros and send no gradient."""
+    feats, index, coords, valid = _rois(cuda_device, dtype)
+    got = roi_align.roi_align_fwd(feats, index, coords, 7,
+                                  out_dtype=torch.float32)
+    want = roi_align.multilevel_roi_align_reference(
+        feats, index, coords, 7, out_dtype=torch.float32)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    assert not got[~valid].any()
+    got = roi_align.roi_align_fwd(feats, index, coords, 7)
+    want = roi_align.multilevel_roi_align_reference(feats, index, coords, 7)
+    assert got.dtype == dtype
+    assert ((got.float() - want.float()).abs() <= _bf16_ulp(want)).all()
+
+    grad = torch.randn(got.shape, generator=torch.Generator().manual_seed(1))
+    grad = grad.to(cuda_device, dtype)
+    got_g = roi_align.roi_align_bwd(grad, index, coords, feats)
+    leaves = [f.detach().float().requires_grad_() for f in feats]
+    want_g = torch.autograd.grad(roi_align.multilevel_roi_align_reference(
+        leaves, index, coords, 7), leaves, grad.float())
+    for a, b in zip(got_g, want_g):
+        assert a.dtype == dtype and not a[-1].any()
+        if dtype == torch.float32:
+            assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+        else:
+            b = b.to(dtype).float()
+            tol = _bf16_ulp(b) + 1e-5 * b.abs().max()
+            assert ((a.float() - b).abs() <= tol).all()
+
+
+@pytest.mark.cuda
+def test_roi_align_autograd_counts_one_launch_each_way(cuda_device):
+    feats, _, _, _ = _rois(cuda_device, torch.float32, B=2)
+    feats = [f.requires_grad_() for f in feats]
+    boxes = torch.tensor([[[10.0, 10.0, 90.0, 70.0], [0.0, 0.0, 300.0,
+                                                       200.0]]] * 2,
+                         device=cuda_device)
+    valid = torch.ones((2, 2), dtype=torch.bool, device=cuda_device)
+    before = roi_align.roi_align_fwd.launches, roi_align.roi_align_bwd.launches
+    pooled = roi_align.multilevel_roi_align(feats, boxes, valid, (4, 8, 16, 32),
+                                            7, 2)
+    assert pooled.shape == (2, 2, 16, 7, 7)
+    pooled.sum().backward()
+    assert (roi_align.roi_align_fwd.launches,
+            roi_align.roi_align_bwd.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    assert all(f.grad is not None for f in feats)
+
+
+@pytest.mark.cuda
+def test_roi_align_wrapper_rejects_what_it_does_not_take(cuda_device):
+    feats, index, coords, _ = _rois(cuda_device, torch.float32, B=2)
+    with pytest.raises(TypeError):
+        roi_align.roi_align_fwd([f.half() for f in feats], index, coords, 7)
+    with pytest.raises(TypeError):
+        roi_align.roi_align_fwd(feats, index.long(), coords, 7)
+    with pytest.raises(TypeError):
+        roi_align.roi_align_fwd([feats[0], feats[1].bfloat16()], index,
+                                coords, 7)
+    with pytest.raises(ValueError):
+        roi_align.roi_align_fwd([f.transpose(2, 3) for f in feats], index,
+                                coords, 7)
+    with pytest.raises(ValueError, match="CUDA"):
+        roi_align.roi_align_fwd([f.cpu() for f in feats], index, coords, 7)

@@ -51,13 +51,16 @@ def jax_model(cfg):
 
 def variable_shapes(model, canvas=(64, 64)):
     """Flat {key: shape} of all the distillator's variables (student,
-    teacher and adapter), traced, not computed."""
+    teacher and adapter), traced, not computed. The ``sampling`` stream
+    feeds an R-CNN student's samples."""
     images = jnp.zeros((1, *canvas, 3), jnp.float32)
     sizes = jnp.asarray([canvas], jnp.int32)
     gt = JaxInstances.from_lists([np.asarray([[4.0, 4.0, 40.0, 30.0]])],
                                  [np.asarray([3])], capacity=2)
     tree = jax.eval_shape(
-        lambda: model.init(jax.random.PRNGKey(0), images, sizes, gt,
+        lambda: model.init({"params": jax.random.PRNGKey(0),
+                            "sampling": jax.random.PRNGKey(1)},
+                           images, sizes, gt,
                            jnp.float32(0.0), jnp.float32(100.0),
                            method=model.train_forward))
     return {k: tuple(v.shape) for k, v in flatten_variables(tree).items()}
@@ -74,7 +77,9 @@ def random_weights(shapes, seed=0):
     """Numpy weights for every key: lecun-normal kernels, small biases, and
     FrozenBN statistics away from the identity, so every layer matters. The
     head's output convs are scaled down so that logits stay within a few
-    units of 0 (saturated sigmoids would tie every score at 1.0)."""
+    units of 0 (saturated sigmoids would tie every score at 1.0), and the
+    R-CNN RPN's likewise (deltas of several units would decode most
+    proposals into empty boxes)."""
     rng = np.random.RandomState(seed)
     out = {}
     for key, shape in sorted(shapes.items()):
@@ -82,7 +87,9 @@ def random_weights(shapes, seed=0):
         if leaf == "kernel":
             fan_in = int(np.prod(shape[:-1]))
             v = rng.randn(*shape) * np.sqrt(1.0 / fan_in)
-            if "cls_score" in key or "bbox_pred" in key:
+            if any(name in key for name in ("cls_score", "bbox_pred",
+                                            "objectness_logits",
+                                            "anchor_deltas")):
                 v = v * 0.02
         elif leaf in ("scale", "var"):
             v = rng.rand(*shape) + 0.5
