@@ -59,6 +59,28 @@
    5, with K1a/K1b 5, K2 2 and K3 forward and backward 2 each per step;
    then ``do_test(eval_teacher=True)`` and the float32 card-vs-CPU
    ``train_forward`` of 7 for the R-CNN model, with the same uniforms.
+11. Kernel K4 (modulated deformable sampling forward and backward,
+   lgd_tpu_torch/csrc/deform_conv.cu) against the plain version on
+   adversarial offsets (integer, fractional, negative, past each border by
+   under a texel and by more, exactly -1 and the last row or column,
+   beyond +-6 px, +-1e3; masks of 0 and 1, unmodulated, stride 2,
+   dilation 2) in float32 and bf16, then at R-101's res3-res5 shapes
+   (batch 16 at 800x1344, bf16, offsets N(0, 1.5) px), held at the same
+   limits and timed beside the plain version and F.grid_sample times the
+   mask (the yardstick; the port never calls it).
+12. RetinaNet R-101-DCNv2 (modulated DCN in res3-res5) and
+   X-101-32x8d-DCNv2 inference through ``do_test`` at batch 8: K2 once and
+   K4 30 times per batch (X-101: 3 of them stride 2), finite detections,
+   COCO metrics; one batch again through ``model.inference`` with the
+   plain NMS and plain K4 forward swapped in, equal detection sets. The
+   offset convs, zero at init, are drawn at random and scaled to offsets
+   of 1.5 px (``draw_offset_convs``), so that samples fall between texels.
+13. RetinaNet R-101-DCNv2 LGD training through ``do_train``, checked and
+   timed as in 5 (gradients clipped by value, ``dcn_train_cfg``), with
+   K1a/K1b 5 and K4 forward and backward 30 each per step and the offset
+   convs trained; then ``do_test(eval_teacher=True)``.
+14. The float32 card-vs-CPU ``train_forward`` of 7 for the R-101-DCNv2
+   model with the same drawn offset convs.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
@@ -92,7 +114,14 @@ TRAIN_LOSS_TOL = 1e-3
 # that sums terms of both signs may differ in float32 by more than an ulp
 # of its small result.
 ROI_TOL = 1e-5
-KERNEL_SOURCES = ("nms", "attention", "roi_align")
+# K4 against its plain version: the float32 forward bit for bit (the kernel
+# repeats the plain version's float32 arithmetic), bfloat16 columns within
+# one bf16 ulp; the backward relative to each gradient's largest value:
+# float32 atomics add dx's shares in an order that changes from run to
+# run, and each offset's and mask's gradient is a sum over the channels in
+# another order than autograd's (bfloat16 dx one ulp more, as K3's)
+DCN_TOL = 1e-5
+KERNEL_SOURCES = ("nms", "attention", "roi_align", "deform_conv")
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s
 # and float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -134,7 +163,7 @@ def build_kernels():
     from concurrent.futures import ThreadPoolExecutor
 
     from lgd_tpu_torch import csrc
-    from lgd_tpu_torch.ops import attention, nms, roi_align
+    from lgd_tpu_torch.ops import attention, deform_conv, nms, roi_align
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
@@ -143,6 +172,7 @@ def build_kernels():
     nms._kernel()
     attention._kernel()
     roi_align._kernel()
+    deform_conv._kernel()
     log(f"kernel build+load: {time.perf_counter() - t0:.2f} s (nvcc "
         + ", ".join(f"{n} {csrc.build_seconds.get(n, 0.0):.2f} s"
                     for n in KERNEL_SOURCES) + ")")
@@ -151,12 +181,14 @@ def build_kernels():
 def launch_counters():
     """The kernels' wrappers by name; each counts its launches in
     ``launches``."""
-    from lgd_tpu_torch.ops import attention, nms, roi_align
+    from lgd_tpu_torch.ops import attention, deform_conv, nms, roi_align
 
     return {"K1a": attention.attention_fwd, "K1b": attention.attention_bwd,
             "K2": nms.greedy_keep_sorted,
             "K3 forward": roi_align.roi_align_fwd,
-            "K3 backward": roi_align.roi_align_bwd}
+            "K3 backward": roi_align.roi_align_bwd,
+            "K4 forward": deform_conv.deform_sample_fwd,
+            "K4 backward": deform_conv.deform_sample_bwd}
 
 
 def zero_launches():
@@ -787,6 +819,243 @@ def phase_nms_rpn(device):
         "the plain version")
 
 
+def dcn_inputs(B, C, H, W, stride=1, dilation=1, modulated=True,
+               dtype=torch.float32, device="cpu", seed=0, spread=None):
+    """x (B, C, H, W), float32 offsets (B, 18, Ho, Wo) and mask (B, 9, Ho,
+    Wo), or None, of a 3x3 deformable conv, drawn with numpy from ``seed``.
+    With ``spread`` the offsets are N(0, spread) px. Without, adversarial:
+    each dy and each dx is, at random, an integer, a fraction, a negative
+    fraction, a point past either border by under one texel or by more,
+    exactly -1, exactly the last row or column, an offset beyond +-6 px, or
+    +-1e3. A tenth of the mask is exactly 0 and a tenth exactly 1."""
+    import numpy as np
+
+    from lgd_tpu_torch.ops import deform_conv as D
+
+    rng = np.random.RandomState(seed)
+    Ho, Wo = D.output_size(H, W, 3, stride, dilation)
+    shape = (B, 9, Ho, Wo)
+    x = rng.randn(B, C, H, W).astype(np.float32)
+
+    def axis(base, size):
+        base = np.broadcast_to(base, shape)
+        u = rng.rand(*shape)
+        sign = np.where(rng.rand(*shape) < 0.5, -1.0, 1.0)
+        edge = np.where(sign < 0, 0.0, size - 1.0)
+        cases = np.stack([
+            rng.randint(-3, 4, shape).astype(np.float64),
+            (u - 0.5) * 4.0,
+            -3.0 * u,
+            edge + sign * u - base,
+            edge + sign * (1.0 + 3.0 * u) - base,
+            -1.0 - base,
+            size - 1.0 - base,
+            sign * (6.0 + 4.0 * u),
+            sign * 1e3])
+        pick = rng.randint(0, len(cases), shape)
+        return np.take_along_axis(cases, pick[None], 0)[0]
+
+    if spread is None:
+        base_y, base_x = (t.numpy() for t in D.base_grid(Ho, Wo, 3, stride,
+                                                         dilation))
+        off = np.stack([axis(base_y, H), axis(base_x, W)], 2)
+    else:
+        off = rng.randn(B, 9, 2, Ho, Wo) * spread
+    mask = None
+    if modulated:
+        pick = rng.rand(*shape)
+        mask = np.where(pick < 0.1, 0.0,
+                        np.where(pick < 0.2, 1.0, rng.rand(*shape)))
+        mask = torch.from_numpy(mask.astype(np.float32)).to(device)
+    off = off.reshape(B, 18, Ho, Wo).astype(np.float32)
+    return (torch.from_numpy(x).to(device, dtype),
+            torch.from_numpy(off).to(device), mask)
+
+
+def hold_dcn(x, offsets, mask, stride, dilation, grad, what):
+    """K4 forward and, given the columns' gradient, backward against the
+    plain version on the same inputs: the columns bit for bit in float32
+    and within one bf16 ulp in bfloat16; the backward's recomputed columns
+    equal to the forward's; dx, the offsets' and the mask's gradients
+    against autograd of the plain version on float32 copies, within
+    DCN_TOL of each one's largest value (bfloat16 dx one ulp more).
+    Returns the largest absolute errors of the forward and the
+    backward."""
+    from lgd_tpu_torch.ops import deform_conv as D
+
+    got = D.deform_sample_fwd(x, offsets, mask, 3, stride, dilation)
+    want = D.deform_sample_reference(x, offsets, mask, 3, stride, dilation)
+    check(got.dtype == x.dtype and got.shape == want.shape,
+          (got.dtype, tuple(got.shape)))
+    diff = (got.float() - want.float()).abs()
+    err_f = diff.max().item()
+    if x.dtype == torch.float32:
+        check(torch.equal(got, want), f"K4 forward differs ({what}): {err_f}")
+    else:
+        check((diff <= bf16_ulp(want)).all(),
+              f"K4 bf16 forward beyond one ulp ({what}): {err_f}")
+    del want, diff
+    if grad is None:
+        return err_f, 0.0
+    dx, doff, dmask, cols = D.deform_sample_bwd(grad, x, offsets, mask, 3,
+                                                stride, dilation)
+    check(torch.equal(cols, got),
+          f"K4 backward's columns differ from the forward's ({what})")
+    del cols, got
+    want = D.deform_sample_bwd_reference(grad.float(), x.float(), offsets,
+                                         mask, 3, stride, dilation)
+    check((dmask is None) == (mask is None), "K4 mask gradient")
+    err_b = 0.0
+    for name, a, b in zip(("dx", "doffsets", "dmask"), (dx, doff, dmask),
+                          want[:3]):
+        if a is None:
+            continue
+        check(a.dtype == (x.dtype if name == "dx" else torch.float32)
+              and a.shape == b.shape, (name, a.dtype, tuple(a.shape)))
+        b = b.to(a.dtype).float()
+        e = (a.float() - b).abs()
+        tol = DCN_TOL * b.abs().max()
+        if a.dtype == torch.bfloat16:
+            tol = tol + bf16_ulp(b)
+        check((e <= tol).all(), f"K4 {name} beyond tolerance ({what}): "
+                                f"{e.max().item()} (largest "
+                                f"{b.abs().max().item()})")
+        err_b = max(err_b, e.max().item())
+    return err_f, err_b
+
+
+def dcn_bound(x, offsets, mask, forward):
+    """(bound_ms, bound_by) of one K4 call. Forward: x, the offsets and
+    the mask read once, the columns written once; 12 operations per sample
+    and channel (8 products and 3 sums of the bilinear form, the mask).
+    Backward: the columns' gradient, x, the offsets and the mask read once;
+    dx, the offsets' and the mask's gradients and the columns written
+    once; 43 operations per sample and channel (the sample and its mask
+    again, 4 shares and their sums, 2 x 8 for the offsets' derivatives, 2
+    for the mask's)."""
+    n_cols = x.shape[0] * x.shape[1] * 9 * offsets[0, 0].numel()
+    side = 4 * (offsets.numel() + (0 if mask is None else mask.numel()))
+    xb = x.numel() * x.element_size()
+    cb = n_cols * x.element_size()
+    if forward:
+        return bound(xb + side + cb, 12 * n_cols)
+    return bound(2 * (xb + side + cb), 43 * n_cols)
+
+
+def sampling_grid(offsets, H, W):
+    """The sample points of ``offsets`` (B, 18, Ho, Wo) of a stride-1,
+    dilation-1 conv as F.grid_sample's grid (B, 9 * Ho, Wo, 2) with
+    align_corners=True, float32."""
+    from lgd_tpu_torch.ops import deform_conv as D
+
+    B, _, Ho, Wo = offsets.shape
+    base_y, base_x = D.base_grid(Ho, Wo, device=offsets.device)
+    off = offsets.reshape(B, 9, 2, Ho, Wo)
+    py, px = base_y + off[:, :, 0], base_x + off[:, :, 1]
+    grid = torch.stack([px / (W - 1) * 2 - 1, py / (H - 1) * 2 - 1], -1)
+    return grid.reshape(B, 9 * Ho, Wo, 2)
+
+
+# R-101's deformable layers at batch 16 on the 800x1344 canvas: name,
+# channels, height, width, and the number of layers of that shape (all
+# stride 1; X-101's stride-2 first blocks are among the adversarial cases)
+DCN_SLICE = (("res3", 128, 100, 168, 4), ("res4", 256, 50, 84, 23),
+             ("res5", 512, 25, 42, 3))
+
+
+def phase_deform_conv(device, card):
+    """K4 forward and backward against the plain version on adversarial
+    offsets, float32 and bfloat16, modulated and not, stride 2 and
+    dilation 2; then at the slice's own shapes, held at the same limits
+    and timed beside the plain version and F.grid_sample times the mask
+    (the yardstick; the port never calls it). Returns the forward's and
+    the backward's records at res4, where 23 of the 30 layers sit
+    (launches come from the paths)."""
+    from lgd_tpu_torch.ops import deform_conv as D
+
+    err_f = err_b = 0.0
+    checked = 0
+    for B, C, H, W, stride, dil, mod in ((2, 8, 13, 17, 1, 1, True),
+                                         (2, 8, 13, 17, 1, 1, False),
+                                         (2, 16, 12, 9, 2, 1, True),
+                                         (3, 4, 10, 11, 1, 2, True),
+                                         (1, 32, 25, 42, 2, 2, False),
+                                         (2, 64, 50, 84, 1, 1, True),
+                                         (2, 512, 25, 42, 2, 1, True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, off, mask = dcn_inputs(B, C, H, W, stride, dil, mod, dtype,
+                                      device, seed=C + H + stride + dil)
+            Ho, Wo = off.shape[-2:]
+            grad = torch.randn(B, C, 9, Ho, Wo, generator=torch.Generator()
+                               .manual_seed(C)).to(device, dtype)
+            what = (f"{dtype}, {(B, C, H, W)}, stride {stride}, dilation "
+                    f"{dil}, {'modulated' if mod else 'unmodulated'}")
+            e_f, e_b = hold_dcn(x, off, mask, stride, dil, grad, what)
+            err_f, err_b = max(err_f, e_f), max(err_b, e_b)
+            checked += 1
+    torch.cuda.synchronize()
+    log(f"K4: {checked} adversarial cases (integer, fractional and "
+        f"negative offsets, past each border by under a texel and by more, "
+        f"exactly -1 and the last row and column, beyond +-6 px, +-1e3; "
+        f"masks of 0 and 1, unmodulated, stride 2, dilation 2) match the "
+        f"plain version (max abs err forward {err_f:.3e}, float32 bit for "
+        f"bit; backward {err_b:.3e}; tolerance {DCN_TOL} of the largest "
+        f"value, one bf16 ulp more)")
+
+    records, errs = None, [0.0, 0.0]
+    for name, C, H, W, layers in DCN_SLICE:
+        x, off, mask = dcn_inputs(16, C, H, W, dtype=torch.bfloat16,
+                                  device=device, seed=C, spread=1.5)
+        Ho, Wo = off.shape[-2:]
+        grad = torch.randn(16, C, 9, Ho, Wo, device=device,
+                           dtype=torch.bfloat16)
+        what = f"R-101 {name}, {(16, C, H, W)} bf16"
+        e_f, e_b = hold_dcn(x, off, mask, 1, 1, grad, what)
+        errs = [max(errs[0], e_f), max(errs[1], e_b)]
+        f_ms = cuda_ms(lambda: D.deform_sample_fwd(x, off, mask), 20, 3)
+        f_plain = cuda_ms(lambda: D.deform_sample_reference(x, off, mask),
+                          1, 1)
+        b_ms = cuda_ms(lambda: D.deform_sample_bwd(grad, x, off, mask), 10, 2)
+        b_plain = cuda_ms(lambda: D.deform_sample_bwd_reference(
+            grad, x, off, mask), 1, 1)
+        # the yardstick: grid_sample at the same points times the mask, in
+        # the columns' own layout (B, C, 9 * Ho, Wo), and its backward
+        leaves = [x.detach().requires_grad_(),
+                  sampling_grid(off, H, W).to(x.dtype).requires_grad_(),
+                  mask.reshape(16, 1, 9 * Ho, Wo).to(x.dtype)
+                  .requires_grad_()]
+
+        def yardstick(x_, grid_, m_):
+            return F.grid_sample(x_, grid_, mode="bilinear",
+                                 padding_mode="zeros",
+                                 align_corners=True) * m_
+
+        with torch.no_grad():
+            f_lib = cuda_ms(lambda: yardstick(*leaves), 20, 3)
+        lib_out = yardstick(*leaves)
+        g_lib = grad.reshape(16, C, 9 * Ho, Wo)
+        b_lib = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, g_lib, retain_graph=True), 10, 2)
+        del lib_out, leaves
+        f_bound, f_by = dcn_bound(x, off, mask, forward=True)
+        b_bound, b_by = dcn_bound(x, off, mask, forward=False)
+        log(f"K4 at {what} ({layers} layers): forward max abs err {e_f:.3e}, "
+            f"kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms, grid_sample "
+            f"{f_lib:.4f} ms, bound {f_bound:.6f} ms ({f_by}); backward max "
+            f"abs err {e_b:.3e}, kernel {b_ms:.4f} ms, plain (autograd "
+            f"backward) {b_plain:.4f} ms, grid_sample backward {b_lib:.4f} "
+            f"ms, bound {b_bound:.6f} ms ({b_by}) [{card}]")
+        if name == "res4":
+            records = ({"ms": f_ms, "plain_ms": f_plain, "bound_ms": f_bound,
+                        "bound_by": f_by, "library_ms": f_lib},
+                       {"ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound,
+                        "bound_by": b_by, "library_ms": b_lib})
+        del x, off, mask, grad
+        torch.cuda.empty_cache()
+    records[0]["max_abs_err"], records[1]["max_abs_err"] = errs
+    return records
+
+
 def lgd_train_opts(steps, distill_from):
     """The LGD training settings of both detectors: reference R-50 solver
     settings, the synthetic split at the reference training size (short
@@ -869,6 +1138,7 @@ def rcnn_train_cfg(opts=()):
 KERNEL_FAMILIES = (
     ("K1a/K1b attention", ("attn_fwd_kernel", "attn_bwd_kernel")),
     ("K3 ROIAlign", ("roi_align_fwd_kernel", "roi_align_bwd_kernel")),
+    ("K4 deformable sampling", ("deform_fwd_kernel", "deform_bwd_kernel")),
     ("K2 NMS", ("nms_mask_kernel", "nms_sweep_kernel")),
     ("layout NCHW<->NHWC", ("nchwToNhwc", "nhwcToNchw", "AddPadding")),
     ("convolution", ("implicit_gemm", "conv", "fprop", "dgrad", "wgrad",
@@ -924,12 +1194,13 @@ RCNN_LOSSES = tuple(sorted(
 
 
 def phase_train(device, card, cfg, what, steps, timed, distill_from,
-                per_step, loss_keys):
+                per_step, loss_keys, prepare=None):
     """LGD training at full width through do_train (``steps`` steps, the
     backbone pre-freeze lifting after step 0, distillation from step
     ``distill_from``), then ``timed`` timed steady-state steps and a
     profile of two. Every kernel launches ``per_step`` times per step.
-    Returns (model, launches of the do_train run)."""
+    ``prepare(model)`` runs once the model is built. Returns (model,
+    launches of the do_train run)."""
     from lgd_tpu_torch.data import TrainLoader
     from lgd_tpu_torch.engine.train_step import (
         batch_to_device,
@@ -945,6 +1216,8 @@ def phase_train(device, card, cfg, what, steps, timed, distill_from,
     batch = cfg.SOLVER.IMS_PER_BATCH
     dtype = getattr(torch, cfg.TPU.COMPUTE_DTYPE)
     model = build_model(cfg, dtype=dtype, device=device, seed=0)
+    if prepare is not None:
+        prepare(model)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"train model: R-{cfg.MODEL.RESNETS.DEPTH} FPN {what} + "
         f"{cfg.MODEL.DISTILLATOR.TEACHER.NR_TRANSFORMER_HEADS}-head teacher "
@@ -969,7 +1242,13 @@ def phase_train(device, card, cfg, what, steps, timed, distill_from,
 
     model.train_forward, model.distill_loss = recording_forward, probing_distill
     stem = model.student.bottom_up.stem_conv1.weight.detach().clone()
-    res3 = model.student.bottom_up.res3_0.conv1.weight.detach().clone()
+    # res3's first block trains once the pre-freeze lifts: its 1x1 conv,
+    # and a deformable unit's offset conv, which learns through K4's
+    # backward
+    trunk = dict(model.student.bottom_up.named_parameters())
+    moving = {n: trunk[n].detach().clone() for n in (
+        "res3_0.conv1.weight", "res3_0.conv2.offset_conv.weight",
+        "res3_0.conv2.offset_conv.bias") if n in trunk}
     loader = TrainLoader(cfg)
     zero_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -996,14 +1275,16 @@ def phase_train(device, card, cfg, what, steps, timed, distill_from,
           f"step")
     check(torch.equal(model.student.bottom_up.stem_conv1.weight, stem),
           "the FREEZE_AT stem conv moved")
-    check(not torch.equal(model.student.bottom_up.res3_0.conv1.weight, res3),
-          "res3 never trained after the pre-freeze")
+    for name, before in moving.items():
+        check(not torch.equal(trunk[name], before),
+              f"{name} never trained after the pre-freeze")
     log(f"do_train: {steps} steps in {wall:.2f} s (first-step set-up and "
         f"host data included); launches {launches}; loss_distill reaches "
         f"the student from step {distill_from} (|grad p3| "
         f"{float(distill_grads[distill_from - 1][1]):.3e} at step "
         f"{distill_from - 1}, {float(distill_grads[distill_from][1]):.3e} "
-        f"at step {distill_from}); stem unchanged; peak memory "
+        f"at step {distill_from}); stem unchanged, {', '.join(moving)} "
+        f"moved; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     for i in (0, steps - 1):
         log(f"  step {i}: " + ", ".join(
@@ -1112,17 +1393,20 @@ def same_det_sets(a, b, i, box_tol=1e-3, score_tol=1e-4):
 
 
 class PlainKernels:
-    """Inside the block the NMS sweep and the ROIAlign forward are their
-    plain versions: the R-CNN code finds ``nms.greedy_keep_sorted`` and
-    ``roi_align.roi_align_fwd`` by module attribute when it calls them, so
-    ``model.inference`` itself runs the plain path. Every pool the sweep
-    sees is kept in ``pools``."""
+    """Inside the block the NMS sweep, the ROIAlign forward and the
+    deformable sampling forward are their plain versions: the model's code
+    finds ``nms.greedy_keep_sorted``, ``roi_align.roi_align_fwd`` and
+    ``deform_conv.deform_sample_fwd`` by module attribute when it calls
+    them, so ``model.inference`` itself runs the plain path. Every pool the
+    sweep sees is kept in ``pools``."""
 
     def __enter__(self):
+        from lgd_tpu_torch.ops import deform_conv as D
         from lgd_tpu_torch.ops import nms
         from lgd_tpu_torch.ops import roi_align as RA
 
-        self.saved = nms.greedy_keep_sorted, RA.roi_align_fwd
+        self.saved = (nms.greedy_keep_sorted, RA.roi_align_fwd,
+                      D.deform_sample_fwd)
         self.pools = []
 
         def keep(boxes_s, valid_s, thr):
@@ -1134,13 +1418,16 @@ class PlainKernels:
                 features, index, coords, output_size, out_dtype=out_dtype)
 
         nms.greedy_keep_sorted, RA.roi_align_fwd = keep, pool
+        D.deform_sample_fwd = D.deform_sample_reference
         return self
 
     def __exit__(self, *exc):
+        from lgd_tpu_torch.ops import deform_conv as D
         from lgd_tpu_torch.ops import nms
         from lgd_tpu_torch.ops import roi_align as RA
 
-        nms.greedy_keep_sorted, RA.roi_align_fwd = self.saved
+        (nms.greedy_keep_sorted, RA.roi_align_fwd,
+         D.deform_sample_fwd) = self.saved
 
 
 def phase_rcnn_inference(device, card):
@@ -1238,20 +1525,27 @@ def compare_card_cpu(names, got, want):
             f"{diff:.3e} (scale {scale:.3e})")
 
 
-def phase_card_vs_cpu(device):
+def phase_card_vs_cpu(device, opts=(), per_run=None, prepare=None):
     """The float32 model on the card against the same model on the CPU, on
     a small input, TF32 off: features and head outputs of inference, then
     train_forward's losses and normalizer with a backward (K1a and K1b on
-    the card, their plain versions on the CPU)."""
+    the card, their plain versions on the CPU). ``opts`` change the
+    R-50 model, whose run launches ``per_run``; ``prepare(model, images,
+    sizes)`` sets the CPU model's weights, which the card's model then
+    loads."""
     from lgd_tpu_torch.models.distillator import build_model
 
     cfg = smoke_cfg(["TPU.COMPUTE_DTYPE", "float32",
-                     "MODEL.DISTILLATOR.TEACHER.ADD_CONTEXT_BOX", True])
+                     "MODEL.DISTILLATOR.TEACHER.ADD_CONTEXT_BOX", True,
+                     *opts])
     cpu = build_model(cfg, dtype=torch.float32, device="cpu", seed=1)
     gpu = build_model(cfg, dtype=torch.float32, device=device, seed=1)
     g = torch.Generator().manual_seed(0)
     images = torch.rand(2, 3, 128, 160, generator=g) * 255
     sizes = torch.tensor([[128, 160], [100, 120]])
+    if prepare is not None:
+        prepare(cpu, images, sizes)
+        gpu.load_state_dict(cpu.state_dict())
     gt = card_vs_cpu_gt(cfg)
 
     def outputs(model, dev):
@@ -1271,7 +1565,7 @@ def phase_card_vs_cpu(device):
         got = outputs(gpu, device)
     torch.cuda.synchronize()
     launched = read_launches()
-    check(launched == expect_launches({"K1a": 5, "K1b": 5}, 1),
+    check(launched == expect_launches(per_run or {"K1a": 5, "K1b": 5}, 1),
           f"card train_forward launched {launched}")
     want = outputs(cpu, "cpu")
     check(read_launches() == launched, "the CPU model launched a kernel")
@@ -1337,6 +1631,178 @@ def phase_rcnn_card_vs_cpu(device):
                       "loss_normalizer"], got, want)
 
 
+DCN_OPTS = ["MODEL.RESNETS.DEPTH", 101,
+            "MODEL.RESNETS.DEFORM_ON_PER_STAGE", [False, True, True, True],
+            "MODEL.RESNETS.DEFORM_MODULATED", True]
+X101_OPTS = ["MODEL.RESNETS.NUM_GROUPS", 32, "MODEL.RESNETS.WIDTH_PER_GROUP",
+             8, "MODEL.RESNETS.STRIDE_IN_1X1", False]
+DCN_UNITS = 30  # deformable 3x3s of R-101 / X-101 in res3-res5: 4 + 23 + 3
+DCN_TRAIN_STEPS = 4    # R-101-DCNv2 do_train steps with the checks
+DCN_TIMED_STEPS = 3
+OFFSET_SPREAD = 1.5    # px, the spread the drawn offset convs give
+
+
+def dcn_train_cfg(opts=()):
+    """The RetinaNet R-101-DCNv2 LGD training slice: distillation from
+    step 2, gradients clipped by value at 1.0 (SOLVER.CLIP_GRADIENTS, as
+    the in-repo mini configs set it). Without the clip, seeded random
+    weights at R-101 depth diverge at the first backbone update, with and
+    without deformable stages and with K4 or its plain version alike:
+    loss_cls 3.7e3, then 1.5e8, then NaN (R-101 without DCN: 1.8e5, then
+    2.4e15, then NaN); R-50 does not."""
+    return smoke_cfg([*DCN_OPTS, *lgd_train_opts(DCN_TRAIN_STEPS, 2),
+                      "MODEL.RETINANET.SMOOTH_L1_LOSS_BETA", 0.0,
+                      "SOLVER.CLIP_GRADIENTS.ENABLED", True, *opts])
+
+
+def draw_offset_convs(model, images, sizes, seed=0):
+    """Seeded random weights for every deformable unit's offset conv
+    (the model's own start at zero, where every sample lies on the grid
+    and the kernel's fractional arithmetic never runs), scaled unit by unit
+    in one forward pass over ``images`` so that its offsets spread
+    OFFSET_SPREAD px there; the mask logits scale alike. Logs each stage's
+    offset spread and the share of sample points outside the feature
+    map."""
+    from lgd_tpu_torch.models.backbones.resnet import DeformConvUnit
+    from lgd_tpu_torch.ops import deform_conv as D
+
+    g = torch.Generator().manual_seed(seed)
+    stats, handles = {}, []
+
+    def calibrate(unit, stage):
+        def hook(conv, inputs, out):
+            scale = OFFSET_SPREAD / out[:, :18].std()
+            conv.weight.mul_(scale)
+            out = out * scale
+            H, W = inputs[0].shape[-2:]
+            Ho, Wo = out.shape[-2:]
+            base_y, base_x = D.base_grid(Ho, Wo, 3, unit.stride,
+                                         unit.dilation, out.device)
+            off = out[:, :18].reshape(-1, 9, 2, Ho, Wo)
+            py, px = base_y + off[:, :, 0], base_x + off[:, :, 1]
+            outside = (py < 0) | (py > H - 1) | (px < 0) | (px > W - 1)
+            stats.setdefault(stage, []).append(
+                (float(off.std()), float(outside.float().mean())))
+            return out
+        return hook
+
+    for name, unit in model.student.bottom_up.named_modules():
+        if isinstance(unit, DeformConvUnit):
+            conv = unit.offset_conv
+            with torch.no_grad():
+                conv.weight.copy_(torch.randn(conv.weight.shape, generator=g))
+                conv.bias.zero_()
+            handles.append(conv.register_forward_hook(
+                calibrate(unit, name.split("_")[0])))
+    with torch.no_grad():
+        model.student(images, sizes)
+    for h in handles:
+        h.remove()
+    check(sum(len(v) for v in stats.values()) == DCN_UNITS, stats.keys())
+    log("offset convs drawn: " + "; ".join(
+        f"{stage} {len(v)} units, offsets spread "
+        f"{sum(x[0] for x in v) / len(v):.3f} px, "
+        f"{100 * sum(x[1] for x in v) / len(v):.2f}% of sample points "
+        f"outside the map" for stage, v in stats.items()))
+
+
+def eval_batch(cfg, device):
+    """The first batch of the synthetic split at the test canvases:
+    (images NCHW, sizes) on the card."""
+    from lgd_tpu_torch.data import TestLoader, get_dataset_dicts
+
+    batch = next(iter(TestLoader(cfg, get_dataset_dicts("synthetic_mini"),
+                                 8)))
+    return (torch.from_numpy(batch["image"]).to(device).permute(0, 3, 1, 2),
+            torch.from_numpy(batch["image_size"]).to(device))
+
+
+def phase_dcn_inference(device, card, what, opts):
+    """DistillatorRetinaNet with modulated DCN in res3-res5 through do_test
+    at batch 8 (offset convs drawn), K2 once and K4 30 times per batch, of
+    which the stride-2 first blocks (X-101) are counted; then one batch
+    again through ``model.inference`` inside PlainKernels (plain NMS and
+    plain K4 forward): equal detection sets. Returns the path's
+    launches."""
+    from lgd_tpu_torch.engine.trainer import do_test
+    from lgd_tpu_torch.models.backbones.resnet import DeformConvUnit
+    from lgd_tpu_torch.models.distillator import build_model
+
+    cfg = smoke_cfg([*DCN_OPTS, *opts])
+    model = build_model(cfg, dtype=torch.bfloat16, device=device, seed=0)
+    images, sizes = eval_batch(cfg, device)
+    draw_offset_convs(model, images, sizes)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"model: {what} FPN RetinaNet, {n_params} parameters, "
+        f"{cfg.TPU.COMPUTE_DTYPE} convolutions")
+    strided = [0]
+    handles = [u.register_forward_hook(lambda *a: strided.__setitem__(
+        0, strided[0] + 1)) for u in model.student.bottom_up.modules()
+        if isinstance(u, DeformConvUnit) and u.stride == 2]
+
+    rec = RecordingModel(model)
+    zero_launches()
+    t0 = time.perf_counter()
+    res = do_test(cfg, rec, device, batch_size=8)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    for h in handles:
+        h.remove()
+    n = len(rec.outputs)
+    check(launches == expect_launches({"K2": 1, "K4 forward": DCN_UNITS}, n),
+          (launches, n))
+    check(strided[0] == len(handles) * n, (strided, len(handles), n))
+    for dets in rec.outputs:
+        for t in (dets.boxes, dets.scores):
+            check(torch.isfinite(t).all(), "non-finite detections")
+        per_image = dets.valid.sum(dim=1).tolist()
+        check(all(1 <= k <= 100 for k in per_image), per_image)
+    for key in ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR@100"):
+        check(key in res["bbox"], key)
+    log(f"{what} do_test: {n} batches, launches {launches} (stride-2 K4 "
+        f"{strided[0]}), AP {res['bbox']['AP']:.4f}, wall {wall:.2f} s "
+        f"= {16 / wall:.2f} images/s incl. host preprocessing and COCO "
+        f"scoring [{card}]")
+
+    kern = model.inference(images, sizes)
+    before = read_launches()
+    with PlainKernels():
+        plain = model.inference(images, sizes)
+    check(read_launches() == before, "the plain run launched a kernel")
+    worst = [same_det_sets(kern, plain, i) for i in range(images.shape[0])]
+    log(f"one batch ({tuple(images.shape)}): K4 and the plain sampling (and "
+        f"K2 and the plain NMS) give equal detection sets (largest "
+        f"differences: box {max(w[0] for w in worst):.3e} px, score "
+        f"{max(w[1] for w in worst):.3e})")
+    step_ms = cuda_ms(lambda: model.inference(images, sizes), iters=5)
+    log(f"{what} model.inference, batch {images.shape[0]} at "
+        f"{tuple(images.shape[-2:])}: {step_ms:.2f} ms = "
+        f"{1000 * images.shape[0] / step_ms:.2f} images/s [{card}]")
+    del model, rec
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_dcn_training(device, card):
+    """RetinaNet R-101-DCNv2 LGD training through do_train at batch 16 on
+    the 800x1344 canvases (offset convs drawn), K1a/K1b 5 and K4 forward
+    and backward 30 each per step, then do_test(eval_teacher=True).
+    Returns the launches of the do_train run."""
+    cfg = dcn_train_cfg()
+    images, sizes = eval_batch(cfg, device)
+    model, train = phase_train(
+        device, card, cfg, "RetinaNet, DCNv2 in res3-res5", DCN_TRAIN_STEPS,
+        DCN_TIMED_STEPS, 2, {"K1a": 5, "K1b": 5, "K4 forward": DCN_UNITS,
+                             "K4 backward": DCN_UNITS},
+        RETINANET_LOSSES, prepare=lambda m: draw_offset_convs(m, images,
+                                                               sizes))
+    phase_eval_teacher(model, cfg, device, card,
+                       {"K1a": 5, "K2": 1, "K4 forward": DCN_UNITS})
+    del model
+    torch.cuda.empty_cache()
+    return train
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -1351,6 +1817,8 @@ def main():
     records["K1a"], records["K1b"] = phase_attention(device, card)
     records["K3 forward"], records["K3 backward"] = phase_roi_align(device,
                                                                     card)
+    records["K4 forward"], records["K4 backward"] = phase_deform_conv(device,
+                                                                      card)
     # the main paths, each run with the launch counts set to 0 just before
     paths["RetinaNet inference"], records["K2"] = phase_slice(device, card)
     model, paths["RetinaNet training"] = phase_train(
@@ -1372,6 +1840,15 @@ def main():
     del model
     torch.cuda.empty_cache()
     phase_rcnn_card_vs_cpu(device)
+    paths["R-101-DCNv2 inference"] = phase_dcn_inference(
+        device, card, "R-101-DCNv2", [])
+    paths["X-101-32x8d-DCNv2 inference"] = phase_dcn_inference(
+        device, card, "X-101-32x8d-DCNv2", X101_OPTS)
+    paths["R-101-DCNv2 training"] = phase_dcn_training(device, card)
+    phase_card_vs_cpu(device, DCN_OPTS, {"K1a": 5, "K1b": 5,
+                                         "K4 forward": 2 * DCN_UNITS,
+                                         "K4 backward": DCN_UNITS},
+                      draw_offset_convs)
     for name, launches in paths.items():
         log(f"launches on the {name} path: {launches}")
     for name in records:
@@ -1395,6 +1872,14 @@ def main():
          "source": "lgd_tpu_torch/csrc/roi_align.cu",
          "replaces": "lgd_tpu/ops/roi_align.py:486",
          **records["K3 backward"]},
+        {"name": "deform_sample_fwd", "route": "cuda",
+         "source": "lgd_tpu_torch/csrc/deform_conv.cu",
+         "replaces": "lgd_tpu/ops/deform_conv.py:401",
+         **records["K4 forward"]},
+        {"name": "deform_sample_bwd", "route": "cuda",
+         "source": "lgd_tpu_torch/csrc/deform_conv.cu",
+         "replaces": "lgd_tpu/ops/deform_conv.py:563",
+         **records["K4 backward"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..layers import Conv2d, feature_strides
+from .resnet import DeformConvUnit
 
 
 class FPN(nn.Module):
@@ -92,11 +93,15 @@ def build_fpn(cfg, top_block: str, dtype: torch.dtype) -> FPN:
 def init_trunk_(student: nn.Module, generator: torch.Generator):
     """Random weights of a student's ``bottom_up`` ResNet and ``fpn``, drawn
     like the flax initializers: lecun-normal backbone convs, glorot-uniform
-    FPN convs with zero biases; FrozenBN stays the identity."""
+    FPN convs with zero biases; FrozenBN stays the identity. Deformable
+    units then zero their offset convs and draw their he-normal weights."""
     for m in student.bottom_up.modules():
         if isinstance(m, Conv2d):
             nn.init.normal_(m.weight, 0.0, 1.0 / math.sqrt(
                 m.weight[0].numel()), generator=generator)
+    for m in student.bottom_up.modules():
+        if isinstance(m, DeformConvUnit):
+            m.init_weights_(generator)
     for m in student.fpn.modules():
         if isinstance(m, Conv2d):
             nn.init.xavier_uniform_(m.weight, generator=generator)

@@ -9,23 +9,67 @@ bridge maps names one to one:
 - stages res2..res5 of bottleneck blocks, a projection shortcut on the
   first block of each stage, the stride in the 1x1 when STRIDE_IN_1X1;
 - ``_STAGE_BLOCKS`` is the JAX package's: depths 18 and 34 are bottleneck
-  stacks too, not torchvision's basic blocks.
-
-Deformable stages (DEFORM_ON_PER_STAGE) come with the DCN slice.
+  stacks too, not torchvision's basic blocks;
+- DEFORM_ON_PER_STAGE swaps a stage's 3x3 for a (modulated) deformable
+  conv, ``DeformConvUnit`` under the name ``conv2``, its norm still the
+  block's ``conv2_norm`` (lgd_tpu/models/backbones/resnet.py:68-137).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops.deform_conv import deform_conv2d
 from ..layers import Conv2d, get_norm
 
 _STAGE_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3),
                  101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
+
+
+class DeformConvUnit(nn.Module):
+    """3x3 (modulated) deformable conv with no norm of its own. The offsets
+    and the mask come from ``offset_conv``, a zero-initialised 3x3 conv
+    with bias computing in float32 on a float32 copy of the input (27
+    channels: 18 offsets, then 9 mask logits through a sigmoid; 18 when
+    not modulated); the weight is (F, C / groups, 3, 3) in float32, cast
+    to the compute dtype, and the sampling is kernel K4
+    (``ops/deform_conv.py``)."""
+
+    def __init__(self, in_channels: int, features: int, stride: int = 1,
+                 dilation: int = 1, groups: int = 1, modulated: bool = True,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        k = 3
+        self.stride, self.dilation, self.groups = stride, dilation, groups
+        self.modulated, self.dtype = modulated, dtype
+        self.offset_conv = Conv2d(
+            in_channels, (3 if modulated else 2) * k * k, k, stride=stride,
+            padding=dilation, dilation=dilation, bias=True,
+            compute_dtype=torch.float32)
+        self.weight = nn.Parameter(torch.zeros(features, in_channels // groups,
+                                               k, k))
+
+    def init_weights_(self, generator: torch.Generator):
+        """flax's initializers: zero offset conv, he-normal weight."""
+        nn.init.zeros_(self.offset_conv.weight)
+        nn.init.zeros_(self.offset_conv.bias)
+        nn.init.normal_(self.weight, 0.0, math.sqrt(
+            2.0 / self.weight[0].numel()), generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        om = self.offset_conv(x.float())
+        if self.modulated:
+            offsets, mask = om[:, :18], torch.sigmoid(om[:, 18:])
+        else:
+            offsets, mask = om, None
+        return deform_conv2d(x.to(self.dtype), self.weight.to(self.dtype),
+                             offsets, mask, stride=self.stride,
+                             dilation=self.dilation, groups=self.groups)
 
 
 class BottleneckBlock(nn.Module):
@@ -33,6 +77,7 @@ class BottleneckBlock(nn.Module):
                  bottleneck_channels: int, stride: int = 1,
                  num_groups: int = 1, norm: str = "FrozenBN",
                  stride_in_1x1: bool = True, dilation: int = 1,
+                 use_deform: bool = False, deform_modulated: bool = False,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         stride_1x1, stride_3x3 = ((stride, 1) if stride_in_1x1
@@ -50,8 +95,17 @@ class BottleneckBlock(nn.Module):
         if self.has_shortcut:
             conv("shortcut", in_channels, out_channels, 1, stride)
         conv("conv1", in_channels, bottleneck_channels, 1, stride_1x1)
-        conv("conv2", bottleneck_channels, bottleneck_channels, 3, stride_3x3,
-             groups=num_groups, dil=dilation)
+        if use_deform:
+            self.conv2 = DeformConvUnit(
+                bottleneck_channels, bottleneck_channels, stride=stride_3x3,
+                dilation=dilation, groups=num_groups,
+                modulated=deform_modulated, dtype=dtype)
+            n = get_norm(norm, bottleneck_channels)
+            if n is not None:
+                self.conv2_norm = n
+        else:
+            conv("conv2", bottleneck_channels, bottleneck_channels, 3,
+                 stride_3x3, groups=num_groups, dil=dilation)
         conv("conv3", bottleneck_channels, out_channels, 1, 1)
 
     def _conv(self, name: str, x: torch.Tensor) -> torch.Tensor:
@@ -76,6 +130,8 @@ class ResNet(nn.Module):
                  res2_out_channels: int = 256, stride_in_1x1: bool = True,
                  res5_dilation: int = 1, norm: str = "FrozenBN",
                  out_features: Sequence[str] = ("res3", "res4", "res5"),
+                 deform_on_per_stage: Sequence[bool] = (False,) * 4,
+                 deform_modulated: bool = False,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.dtype = dtype
@@ -102,7 +158,8 @@ class ResNet(nn.Module):
                     stride=first_stride if block_idx == 0 else 1,
                     num_groups=num_groups, norm=norm,
                     stride_in_1x1=stride_in_1x1, dilation=dilation,
-                    dtype=dtype))
+                    use_deform=bool(deform_on_per_stage[stage_idx]),
+                    deform_modulated=deform_modulated, dtype=dtype))
                 in_channels = out_channels
                 names.append(name)
             self.block_names.append((f"res{stage_idx + 2}", names))
@@ -125,10 +182,12 @@ class ResNet(nn.Module):
 
 def build_resnet(cfg, dtype: torch.dtype = torch.bfloat16) -> ResNet:
     r = cfg.MODEL.RESNETS
-    if any(r.DEFORM_ON_PER_STAGE):
+    if any(r.DEFORM_ON_PER_STAGE) and r.DEFORM_NUM_GROUPS != 1:
+        # the JAX package ignores this key; detectron2 splits the offsets
+        # into groups of channels
         raise NotImplementedError(
-            "deformable ResNet stages (DCNv2, kernel K4) come with the DCN "
-            "slice (ROADMAP.md, queue item 4)")
+            f"DEFORM_NUM_GROUPS {r.DEFORM_NUM_GROUPS}: deformable groups are "
+            f"not supported (one offset field per position)")
     return ResNet(
         depth=r.DEPTH,
         num_groups=r.NUM_GROUPS,
@@ -139,5 +198,7 @@ def build_resnet(cfg, dtype: torch.dtype = torch.bfloat16) -> ResNet:
         res5_dilation=r.RES5_DILATION,
         norm=r.NORM,
         out_features=tuple(r.OUT_FEATURES),
+        deform_on_per_stage=tuple(r.DEFORM_ON_PER_STAGE),
+        deform_modulated=r.DEFORM_MODULATED,
         dtype=dtype,
     )

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from ...ops import losses as L
 from ...ops.matcher import Matcher
-from ...ops.nms import batched_nms_mask, greedy_keep_sorted, topk_detections
+from ...ops.nms import batched_nms_mask, topk_detections
 from ...ops.topk import topk_flat_pairs
 from ...structures import BatchedDetections, BatchedInstances, Box2BoxTransform
 from ...structures import boxes as box_ops
@@ -201,14 +201,15 @@ def retinanet_inference(cfg, pred_logits: torch.Tensor,
                         pred_deltas: torch.Tensor, anchors: torch.Tensor,
                         level_counts: Sequence[int],
                         image_sizes: torch.Tensor,
-                        keep_fn=greedy_keep_sorted) -> BatchedDetections:
+                        keep_fn=None) -> BatchedDetections:
     """Top-k per level -> score filter -> decode -> clip -> top 2000 ->
     class-aware NMS -> top DETECTIONS_PER_IMAGE, batched over images
     (detectron2 RetinaNet.inference semantics on padded static shapes).
 
     pred_logits (B, R, K), pred_deltas (B, R, 4), anchors (R, 4) on the
-    same device; image_sizes (B, 2) (h, w). ``keep_fn`` is the NMS sweep
-    (kernel K2 by default)."""
+    same device; image_sizes (B, 2) (h, w). ``keep_fn`` is the NMS sweep;
+    by default ``nms.greedy_keep_sorted`` (kernel K2), looked up when it
+    is called."""
     topk_cand = cfg.MODEL.RETINANET.TOPK_CANDIDATES_TEST
     score_thresh = cfg.MODEL.RETINANET.SCORE_THRESH_TEST
     nms_thresh = cfg.MODEL.RETINANET.NMS_THRESH_TEST

@@ -1,6 +1,7 @@
 """Kernels K2 (lgd_tpu_torch/csrc/nms.cu), K1a/K1b
-(lgd_tpu_torch/csrc/attention.cu) and K3 (lgd_tpu_torch/csrc/roi_align.cu)
-on the card, against their plain PyTorch versions. Imports no JAX, so it runs on a machine that has only the port's
+(lgd_tpu_torch/csrc/attention.cu), K3 (lgd_tpu_torch/csrc/roi_align.cu) and
+K4 (lgd_tpu_torch/csrc/deform_conv.cu) on the card, against their plain
+PyTorch versions. Imports no JAX, so it runs on a machine that has only the port's
 dependencies:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -11,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from lgd_tpu_torch.ops import attention, nms, roi_align
+from chip_smoke import dcn_inputs, hold_dcn
+from lgd_tpu_torch.ops import attention, deform_conv, nms, roi_align
 
 
 @pytest.fixture
@@ -234,3 +236,63 @@ def test_roi_align_wrapper_rejects_what_it_does_not_take(cuda_device):
                                 coords, 7)
     with pytest.raises(ValueError, match="CUDA"):
         roi_align.roi_align_fwd([f.cpu() for f in feats], index, coords, 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride,dilation,modulated", [
+    (1, 1, True), (1, 1, False), (2, 1, True), (1, 2, True)])
+def test_deform_conv_kernels_match_plain_version(cuda_device, dtype, stride,
+                                                 dilation, modulated):
+    """K4 forward and backward on adversarial offsets (chip_smoke's
+    ``hold_dcn``): the float32 columns bit for bit, bfloat16 within one
+    ulp, the backward's recomputed columns equal to the forward's, dx and
+    the offsets' and mask's gradients within 1e-5 of each one's largest
+    value (bfloat16 dx one ulp more)."""
+    x, off, mask = dcn_inputs(2, 24, 19, 23, stride, dilation, modulated,
+                              dtype, cuda_device, seed=stride + dilation)
+    grad = torch.randn(2, 24, 9, *off.shape[-2:], generator=torch.Generator()
+                       .manual_seed(3)).to(cuda_device, dtype)
+    before = (deform_conv.deform_sample_fwd.launches,
+              deform_conv.deform_sample_bwd.launches)
+    hold_dcn(x, off, mask, stride, dilation, grad, "test")
+    torch.cuda.synchronize()
+    assert (deform_conv.deform_sample_fwd.launches,
+            deform_conv.deform_sample_bwd.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_deform_conv_autograd_counts_one_launch_each_way(cuda_device):
+    x, off, mask = dcn_inputs(2, 8, 12, 14, device=cuda_device, seed=1,
+                              spread=1.5)
+    leaves = [x.requires_grad_(), off.requires_grad_(),
+              mask.requires_grad_(),
+              torch.randn(6, 8, 3, 3, device=cuda_device).requires_grad_()]
+    before = (deform_conv.deform_sample_fwd.launches,
+              deform_conv.deform_sample_bwd.launches)
+    out = deform_conv.deform_conv2d(leaves[0], leaves[3], leaves[1],
+                                    leaves[2])
+    assert out.shape == (2, 6, 12, 14)
+    out.sum().backward()
+    assert (deform_conv.deform_sample_fwd.launches,
+            deform_conv.deform_sample_bwd.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in leaves)
+
+
+@pytest.mark.cuda
+def test_deform_conv_wrapper_rejects_what_it_does_not_take(cuda_device):
+    x, off, mask = dcn_inputs(1, 4, 8, 8, device=cuda_device)
+    fwd = deform_conv.deform_sample_fwd
+    with pytest.raises(TypeError):
+        fwd(x.half(), off, mask)
+    with pytest.raises(TypeError):
+        fwd(x, off.double(), mask)
+    with pytest.raises(ValueError):
+        fwd(x, off[:, :16].contiguous(), mask)
+    with pytest.raises(ValueError):
+        fwd(x.transpose(2, 3), off, mask)
+    with pytest.raises(ValueError, match="CUDA"):
+        fwd(x, off.cpu(), mask)

@@ -84,3 +84,29 @@ def test_head_emits_hwa_order():
         n, a * k, h, w)
     want = x.permute(0, 2, 3, 1).reshape(n, h * w * a, k)
     assert torch.equal(tret.permute_to_n_hwa_k(x, k), want)
+
+
+def test_inference_finds_the_nms_sweep_when_it_is_called(monkeypatch):
+    """Without ``keep_fn``, ``retinanet_inference`` calls the module's
+    ``nms.greedy_keep_sorted`` as it stands at the call (as the R-CNN
+    heads do), so a caller that swaps it for the plain sweep runs the
+    plain sweep: the default no longer binds the kernel at import."""
+    from lgd_tpu_torch.ops import nms
+
+    cfg = retinanet_cfg(opts=["MODEL.RETINANET.TOPK_CANDIDATES_TEST", 50])
+    anchors, counts = tret.build_anchors(cfg, (64, 64))
+    rng = np.random.RandomState(1)
+    logits = torch.from_numpy((rng.randn(1, anchors.shape[0], 80) - 3)
+                              .astype(np.float32))
+    deltas = torch.zeros((1, anchors.shape[0], 4))
+    calls = []
+
+    def plain(*args):
+        calls.append(args[0].shape)
+        return nms.greedy_keep_sorted_reference(*args)
+
+    monkeypatch.setattr(nms, "greedy_keep_sorted", plain)
+    dets = tret.retinanet_inference(cfg, logits, deltas,
+                                    torch.from_numpy(anchors), counts,
+                                    torch.tensor([[64, 64]]))
+    assert len(calls) == 1 and dets.valid.any()

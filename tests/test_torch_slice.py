@@ -114,7 +114,8 @@ def test_do_test_returns_coco_metrics():
 def test_eval_teacher_and_training_raise():
     """EVAL_TEACHER inference and ``train_forward`` run on the CPU (they
     raised before the teacher was ported); what still raises is a DCN
-    backbone, and the teacher without the GT it is built from."""
+    backbone with deformable groups (DEFORM_NUM_GROUPS, which the JAX
+    package ignores), and the teacher without the GT it is built from."""
     from lgd_tpu_torch.structures import BatchedInstances
 
     cfg = retinanet_cfg(opts=["TPU.MAX_INSTANCES", 4])
@@ -135,8 +136,9 @@ def test_eval_teacher_and_training_raise():
     with pytest.raises(ValueError, match="GT"):
         model.inference(x, s, eval_teacher=True)
     dcn = retinanet_cfg(opts=["MODEL.RESNETS.DEFORM_ON_PER_STAGE",
-                              [False, True, True, True]])
-    with pytest.raises(NotImplementedError, match="DCN"):
+                              [False, True, True, True],
+                              "MODEL.RESNETS.DEFORM_NUM_GROUPS", 2])
+    with pytest.raises(NotImplementedError, match="DEFORM_NUM_GROUPS"):
         build_model(dcn, device="cpu")
 
 
