@@ -15,10 +15,13 @@
 3. Kernels K1a and K1b (masked attention forward and backward,
    lgd_tpu_torch/csrc/attention.cu) against the plain version and its
    autograd gradient, float32 with TF32 off, at B in {1, 16}, 8 heads,
-   N in {2, 33, 64, 101}, D = 32, with padded keys, an image whose only
-   valid key is the fallback slot and an image with no valid key; then
+   N in {1, 15, 16, 17, 101, 128, 257} and 101 queries x 37 keys, D = 32,
+   with padded keys, an image whose only valid key is the fallback slot and
+   an image with no valid key; K1b run twice must give the same bits. Then
    timed at (16, 8, 101, 32) beside the plain version and
-   scaled_dot_product_attention (the yardstick; the port never calls it).
+   scaled_dot_product_attention (the yardstick; the port never calls it):
+   a CUDA graph of 200 calls replayed, which the host cannot pace, with
+   CUDA events over a loop of launches beside it; and at each tile size.
 4. Inference: DistillatorRetinaNet, R-50 FPN at full width (256-channel
    p3-p7, 9 anchors, 80 classes), seeded random weights, bf16 convolutions,
    through the port's ``do_test`` on the 16-image synthetic split at the
@@ -423,14 +426,16 @@ def phase_slice(device, card):
                            "bound_by": bound_by, "library_ms": None}
 
 
-def attention_inputs(B, N, seed, device, H=8, D=32):
-    """q, k, v and an output gradient, and a key mask with padding: image
-    0 keeps only its first key (an image without GT keeps its fallback
-    slot), the last of several images keeps none, the others a random
-    70%."""
+def attention_inputs(B, N, seed, device, H=8, D=32, Nk=None):
+    """q and an output gradient (B, H, N, D), k and v (B, H, Nk, D) (Nk
+    defaults to N), and a key mask with padding: image 0 keeps only its
+    first key (an image without GT keeps its fallback slot), the last of
+    several images keeps none, the others a random 70%."""
+    Nk = N if Nk is None else Nk
     g = torch.Generator().manual_seed(seed)
-    q, k, v, grad = (torch.randn(B, H, N, D, generator=g) for _ in range(4))
-    valid = torch.rand(B, N, generator=g) > 0.3
+    q, grad = (torch.randn(B, H, N, D, generator=g) for _ in range(2))
+    k, v = (torch.randn(B, H, Nk, D, generator=g) for _ in range(2))
+    valid = torch.rand(B, Nk, generator=g) > 0.3
     valid[0] = False
     valid[0, 0] = True
     if B > 1:
@@ -452,86 +457,153 @@ class NoTF32:
          torch.backends.cudnn.allow_tf32) = self.saved
 
 
+# K1a/K1b's correctness shapes: (B, Nq, Nk) at the edges of a warp's 4
+# rows and of the 32-lane token groups (15, 16, 17), the teacher's 101
+# tokens, one full 128-token chunk, three chunks (257), and more queries
+# than keys
+ATTN_SHAPES = tuple((B, N, N) for B in (1, 16)
+                    for N in (1, 15, 16, 17, 101, 128, 257)) + ((16, 101, 37),)
+
+
+def hold_attention(got, want, what):
+    """K1a's output and K1b's gradients (lists [out, dq, dk, dv]) against
+    the plain version's: ATTN_FWD_TOL and ATTN_GRAD_TOL of each largest
+    value. Returns the largest absolute errors of both."""
+    for t in got:
+        check(torch.isfinite(t).all(), f"K1 non-finite ({what})")
+    errs = []
+    for name, a, b, tol in zip(("out", "dq", "dk", "dv"), got, want,
+                               (ATTN_FWD_TOL,) + 3 * (ATTN_GRAD_TOL,)):
+        check(a.shape == b.shape, (name, a.shape, b.shape))
+        e = (a - b).abs().max().item() if b.numel() else 0.0
+        check(e <= tol * (b.abs().max().item() if b.numel() else 0.0),
+              f"K1 {name} differs ({what}): {e}")
+        errs.append(e)
+    return errs[0], max(errs[1:])
+
+
+def graph_ms(make, iters=200):
+    """Device time per call of the callable that ``make()`` returns: the
+    callable is built and warmed up on a side stream, so that autograd's
+    backward of a graph built there runs there too; ``iters`` calls are
+    captured into a CUDA graph and one replay is timed with CUDA events.
+    The host launches the replay once, so it cannot pace the calls."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn = make()
+        for _ in range(3):
+            fn()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph, fn
+    torch.cuda.empty_cache()
+    return start.elapsed_time(end) / iters
+
+
 def phase_attention(device, card):
-    """K1a and K1b against the plain version and its autograd gradient,
-    then timed; returns their records (launches come from training)."""
+    """K1a and K1b against the plain version and its autograd gradient at
+    ATTN_SHAPES, K1b run twice and bit-equal; then timed at the teacher's
+    shape (16, 8, 101, 32) beside the plain version and
+    scaled_dot_product_attention (the yardstick; the port never calls it),
+    by replaying a CUDA graph and by CUDA events over a loop. Returns their
+    records (launches come from training)."""
     from lgd_tpu_torch.ops import attention as A
 
     err_f = err_g = 0.0
-    checked = 0
     with NoTF32():
-        for B in (1, 16):
-            for N in (2, 33, 64, 101):
-                q, k, v, g, valid = attention_inputs(B, N, B * 1000 + N,
-                                                     device)
-                scale = 1.0 / q.shape[-1] ** 0.5
-                res = []
-                for fn in (A.masked_attention, A.masked_attention_reference):
-                    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
-                    out = fn(*qkv, valid, scale)
-                    res.append([out.detach(),
-                                *torch.autograd.grad(out, qkv, g)])
-                torch.cuda.synchronize()
-                (got, *got_g), (want, *want_g) = res
-                for t in (got, *got_g):
-                    check(torch.isfinite(t).all(), f"K1 non-finite B={B} "
-                                                   f"N={N}")
-                e = (got - want).abs().max().item()
-                check(e <= ATTN_FWD_TOL * want.abs().max().item(),
-                      f"K1a differs at B={B} N={N}: {e}")
-                err_f = max(err_f, e)
-                for name, a, b in zip("qkv", got_g, want_g):
-                    e = (a - b).abs().max().item()
-                    check(e <= ATTN_GRAD_TOL * b.abs().max().item(),
-                          f"K1b d{name} differs at B={B} N={N}: {e}")
-                    err_g = max(err_g, e)
-                # the image with no valid key averages V uniformly
-                if B > 1:
-                    check(torch.allclose(got[-1], v[-1].mean(
-                        dim=1, keepdim=True).expand_as(got[-1]), atol=1e-5),
-                          "all-invalid image is not a uniform average")
-                checked += 1
-    log(f"K1a/K1b: {checked} shapes match the plain version (max abs err "
-        f"forward {err_f:.3e}, gradients {err_g:.3e}; tolerances "
-        f"{ATTN_FWD_TOL} / {ATTN_GRAD_TOL} of the largest value)")
+        for B, Nq, Nk in ATTN_SHAPES:
+            q, k, v, g, valid = attention_inputs(B, Nq, B * 1000 + Nq + Nk,
+                                                 device, Nk=Nk)
+            scale = 1.0 / q.shape[-1] ** 0.5
+            res = []
+            for fn in (A.masked_attention, A.masked_attention_reference):
+                qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+                out = fn(*qkv, valid, scale)
+                res.append([out.detach(), *torch.autograd.grad(out, qkv, g)])
+            e_f, e_g = hold_attention(*res, f"B={B} Nq={Nq} Nk={Nk}")
+            err_f, err_g = max(err_f, e_f), max(err_g, e_g)
+            # K1b twice on the same inputs: the same bits
+            saved = A.attention_fwd(q, k, v, valid, scale)
+            first = A.attention_bwd(q, k, v, valid, *saved, g, scale)
+            second = A.attention_bwd(q, k, v, valid, *saved, g, scale)
+            check(all(torch.equal(a, b) for a, b in zip(first, second)),
+                  f"K1b differs from run to run at B={B} Nq={Nq} Nk={Nk}")
+            # the image with no valid key averages V uniformly
+            if B > 1:
+                got = res[0][0]
+                check(torch.allclose(got[-1], v[-1].mean(
+                    dim=1, keepdim=True).expand_as(got[-1]), atol=1e-5),
+                      "all-invalid image is not a uniform average")
+    torch.cuda.synchronize()
+    log(f"K1a/K1b: {len(ATTN_SHAPES)} shapes (B, Nq, Nk) {ATTN_SHAPES} "
+        f"match the plain version (max abs err forward {err_f:.3e}, "
+        f"gradients {err_g:.3e}; tolerances {ATTN_FWD_TOL} / {ATTN_GRAD_TOL} "
+        f"of the largest value); K1b bit-equal from run to run")
 
     B, H, N, D = 16, 8, 101, 32
     q, k, v, g, valid = attention_inputs(B, N, 7, device)
     scale = 1.0 / D ** 0.5
     mask = valid[:, None, None, :]
+    saved = A.attention_fwd(q, k, v, valid, scale)
 
     def backward_of(fn):
-        """A call of autograd's backward of fn alone: the forward graph is
-        built once and kept."""
-        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = fn(*qkv)
-        return lambda: torch.autograd.grad(out, qkv, g, retain_graph=True)
+        """Makes a call of autograd's backward of fn alone: the forward
+        graph is built once and kept."""
+        def make():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = fn(*qkv)
+            return lambda: torch.autograd.grad(out, qkv, g,
+                                               retain_graph=True)
+        return make
 
+    calls = {
+        "K1a": lambda: lambda: A.attention_fwd(q, k, v, valid, scale),
+        "plain forward": lambda: lambda: A.masked_attention_reference(
+            q, k, v, valid, scale),
+        "SDPA": lambda: lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale),
+        "K1b": lambda: lambda: A.attention_bwd(q, k, v, valid, *saved, g,
+                                               scale),
+        "plain backward": backward_of(lambda *t: A.masked_attention_reference(
+            *t, valid, scale)),
+        "SDPA backward": backward_of(lambda *t: F.scaled_dot_product_attention(
+            *t, attn_mask=mask, scale=scale)),
+    }
     with NoTF32():
-        f_ms = cuda_ms(lambda: A.attention_fwd(q, k, v, valid, scale), 200, 5)
-        f_plain = cuda_ms(lambda: A.masked_attention_reference(
-            q, k, v, valid, scale), 200, 5)
-        f_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, scale=scale), 200, 5)
-        b_ms = cuda_ms(lambda: A.attention_bwd(q, k, v, valid, g, scale),
-                       200, 5)
-        b_plain = cuda_ms(backward_of(lambda *t: A.masked_attention_reference(
-            *t, valid, scale)), 200, 5)
-        b_lib = cuda_ms(backward_of(lambda *t: F.scaled_dot_product_attention(
-            *t, attn_mask=mask, scale=scale)), 200, 5)
+        dev = {name: graph_ms(make) for name, make in calls.items()}
+        loop = {name: cuda_ms(make(), 200, 5) for name, make in calls.items()}
     elems, pairs = B * H * N * D * 4, B * H * N * N
-    f_bound, f_by = bound(4 * elems + B * N, pairs * (4 * D + 6))
-    b_bound, b_by = bound(7 * elems + B * N, pairs * (10 * D + 10)
-                          + 2 * B * H * N * D)
-    log(f"K1a at {(B, H, N, D)}: kernel {f_ms:.4f} ms, plain {f_plain:.4f} "
-        f"ms, SDPA {f_lib:.4f} ms, bound {f_bound:.6f} ms ({f_by}) [{card}]")
-    log(f"K1b at {(B, H, N, D)}: kernel {b_ms:.4f} ms, plain (autograd "
-        f"backward) {b_plain:.4f} ms, SDPA backward {b_lib:.4f} ms, bound "
-        f"{b_bound:.6f} ms ({b_by}) [{card}]")
-    return ({"max_abs_err": err_f, "ms": f_ms, "plain_ms": f_plain,
-             "bound_ms": f_bound, "bound_by": f_by, "library_ms": f_lib},
-            {"max_abs_err": err_g, "ms": b_ms, "plain_ms": b_plain,
-             "bound_ms": b_bound, "bound_by": b_by, "library_ms": b_lib})
+    rows = B * H * N * 4  # one float per query row (m, s)
+    f_bound, f_by = bound(4 * elems + 2 * rows + B * N, pairs * (4 * D + 6))
+    b_bound, b_by = bound(8 * elems + 2 * rows + B * N,
+                          pairs * (10 * D + 10) + 2 * B * H * N * D)
+    for what, names, bnd, by in (
+            ("K1a", ("K1a", "plain forward", "SDPA"), f_bound, f_by),
+            ("K1b", ("K1b", "plain backward", "SDPA backward"), b_bound,
+             b_by)):
+        log(f"{what} at {(B, H, N, D)}, ms per call, a CUDA graph of 200 "
+            f"calls replayed (CUDA events over a loop of 200 launches from "
+            f"Python in brackets): " + ", ".join(
+                f"{n} {dev[n]:.4f} ({loop[n]:.4f})" for n in names)
+            + f"; bound {bnd:.6f} ms ({by}) [{card}]")
+
+    return ({"max_abs_err": err_f, "ms": dev["K1a"],
+             "plain_ms": dev["plain forward"], "bound_ms": f_bound,
+             "bound_by": f_by, "library_ms": dev["SDPA"]},
+            {"max_abs_err": err_g, "ms": dev["K1b"],
+             "plain_ms": dev["plain backward"], "bound_ms": b_bound,
+             "bound_by": b_by, "library_ms": dev["SDPA backward"]})
 
 
 FPN_STRIDES = (4, 8, 16, 32)   # p2-p5, the ROI heads' levels

@@ -7,10 +7,11 @@ key_valid (B, Nk) bool. On the card it is a ``torch.autograd.Function``
 whose forward is kernel K1a (``attention_fwd``, replacing the Pallas
 ``_pallas_fwd_impl``) and whose backward is kernel K1b (``attention_bwd``,
 replacing ``_pallas_bwd_impl``), both hand-written CUDA in
-``csrc/attention.cu``; they run on every teacher attention call (the JAX
-package's short-sequence dispatch to XLA is not ported). On the CPU it is
-the plain version, ``masked_attention_reference``, differentiated by
-autograd. Any other device raises.
+``csrc/attention.cu``, built for D = 32 (the teacher's 256 channels over 8
+heads); they run on every teacher attention call (the JAX package's
+short-sequence dispatch to XLA is not ported). On the CPU it is the plain
+version, ``masked_attention_reference``, differentiated by autograd. Any
+other device raises.
 """
 
 from __future__ import annotations
@@ -19,7 +20,10 @@ import ctypes
 
 import torch
 
+BUILT_D = 32  # the head width the kernels are built for
+
 _lib = None
+_smem_limit = {}  # device index -> shared memory a block may opt in to
 
 
 def _kernel():
@@ -29,14 +33,12 @@ def _kernel():
 
         lib = csrc.load("attention")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lgd_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                     ctypes.c_float, p]
+        lib.lgd_attn_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                     ctypes.c_float, i, i, p]
         lib.lgd_attn_fwd.restype = i
-        lib.lgd_attn_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                     ctypes.c_float, p]
+        lib.lgd_attn_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i,
+                                     i, i, ctypes.c_float, i, i, p]
         lib.lgd_attn_bwd.restype = i
-        lib.lgd_attn_smem_bytes.argtypes = [i, i, i]
-        lib.lgd_attn_smem_bytes.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -52,11 +54,13 @@ def masked_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", attn, v)
 
 
-def _check(q, k, v, key_valid, g=None):
+def _check(q, k, v, key_valid, saved=()):
     """What the kernels take: float32 CUDA tensors q (B, H, Nq, D), k and
-    v (B, H, Nk, D), key_valid (B, Nk) bool, all contiguous on one card,
-    with N small enough for the block's shared memory."""
-    tensors = [t for t in (q, k, v, g) if t is not None]
+    v (B, H, Nk, D), key_valid (B, Nk) bool, and for the backward the
+    forward's out and the output gradient (B, H, Nq, D) and its rows' max
+    and sum (B, H, Nq); all contiguous on one card, the float tensors
+    16-byte aligned, D a width the kernels are built for."""
+    tensors = [q, k, v, *saved]
     if any(t.device.type != "cuda" for t in (*tensors, key_valid)):
         raise ValueError("attention kernels take CUDA tensors")
     if any(t.device != q.device for t in (*tensors, key_valid)):
@@ -73,57 +77,66 @@ def _check(q, k, v, key_valid, g=None):
     Nk = k.shape[2]
     if (tuple(k.shape) != (B, H, Nk, D) or v.shape != k.shape
             or tuple(key_valid.shape) != (B, Nk)
-            or (g is not None and g.shape != q.shape)):
+            or any(tuple(t.shape) != w for t, w in zip(
+                saved, (tuple(q.shape), (B, H, Nq), (B, H, Nq),
+                        tuple(q.shape))))):
         raise ValueError(
             f"attention kernels: shapes q {tuple(q.shape)}, k "
             f"{tuple(k.shape)}, v {tuple(v.shape)}, key_valid "
-            f"{tuple(key_valid.shape)}"
-            + ("" if g is None else f", g {tuple(g.shape)}"))
+            f"{tuple(key_valid.shape)}, out, m, s, g "
+            f"{[tuple(t.shape) for t in saved]}")
     if not all(t.is_contiguous() for t in (*tensors, key_valid)):
         raise ValueError("attention kernels take contiguous tensors")
-    limit = torch.cuda.get_device_properties(
-        q.device).shared_memory_per_block_optin
-    lib = _kernel()
-    if lib.lgd_attn_smem_bytes(Nq, Nk, D) > limit:
-        n = max(Nq, Nk)
-        while n > 1 and lib.lgd_attn_smem_bytes(n, n, D) > limit:
-            n -= 1
-        raise ValueError(
-            f"attention kernels: {Nq} queries x {Nk} keys of width {D} need "
-            f"{lib.lgd_attn_smem_bytes(Nq, Nk, D)} bytes of shared memory, "
-            f"more than the card's {limit}; at most {n} tokens at D={D} "
-            f"(TPU.MAX_INSTANCES + 1 with the context box)")
-    return lib, (B, H, Nq, Nk, D)
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("attention kernels take 16-byte aligned tensors")
+    if B * H > 65535:
+        raise ValueError(f"attention kernels take at most 65535 (batch, "
+                         f"head) pairs, got {B * H}")
+    if D != BUILT_D:
+        raise ValueError(f"attention kernels are built for D = {BUILT_D} "
+                         f"only, got D = {D}")
+    device = q.device.index
+    if device not in _smem_limit:
+        _smem_limit[device] = torch.cuda.get_device_properties(
+            device).shared_memory_per_block_optin
+    return _kernel(), (B, H, Nq, Nk, D), device, _smem_limit[device]
 
 
-def attention_fwd(q, k, v, key_valid, scale: float) -> torch.Tensor:
-    """Kernel K1a: ``masked_attention_reference`` on the card. Counts each
-    launch in ``attention_fwd.launches``."""
-    lib, (B, H, Nq, Nk, D) = _check(q, k, v, key_valid)
+def attention_fwd(q, k, v, key_valid, scale: float):
+    """Kernel K1a: ``masked_attention_reference`` on the card. Returns
+    (out, m, s): the output and each query row's softmax max and sum
+    (B, H, Nq), which K1b takes. Counts each launch in
+    ``attention_fwd.launches``."""
+    lib, (B, H, Nq, Nk, D), device, limit = _check(q, k, v, key_valid)
     out = torch.empty_like(q)
+    m, s = (q.new_empty((B, H, Nq)) for _ in range(2))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lgd_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               key_valid.data_ptr(), out.data_ptr(), B, H,
-                               Nq, Nk, D, float(scale), stream)
+                               key_valid.data_ptr(), out.data_ptr(),
+                               m.data_ptr(), s.data_ptr(), B, H, Nq, Nk, D,
+                               float(scale), device, limit, stream)
     if err != 0:
         raise RuntimeError(f"attention forward launch failed: cudaError {err}")
     attention_fwd.launches += 1
-    return out
+    return out, m, s
 
 
-def attention_bwd(q, k, v, key_valid, g, scale: float):
+def attention_bwd(q, k, v, key_valid, out, m, s, g, scale: float):
     """Kernel K1b: (dq, dk, dv) of ``masked_attention_reference`` for the
-    output gradient g, recomputing the probabilities. Counts each launch in
+    output gradient g, from K1a's out, m and s. Counts each launch in
     ``attention_bwd.launches``."""
-    lib, (B, H, Nq, Nk, D) = _check(q, k, v, key_valid, g)
+    lib, (B, H, Nq, Nk, D), device, limit = _check(
+        q, k, v, key_valid, (out, m, s, g))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lgd_attn_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               key_valid.data_ptr(), g.data_ptr(),
+                               key_valid.data_ptr(), out.data_ptr(),
+                               m.data_ptr(), s.data_ptr(), g.data_ptr(),
                                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                               B, H, Nq, Nk, D, float(scale), stream)
+                               B, H, Nq, Nk, D, float(scale), device, limit,
+                               stream)
     if err != 0:
         raise RuntimeError(
             f"attention backward launch failed: cudaError {err}")
@@ -136,21 +149,23 @@ attention_bwd.launches = 0
 
 
 class _MaskedAttention(torch.autograd.Function):
-    """K1a forward, K1b backward; q, k, v and key_valid are saved and the
-    probabilities recomputed, as the Pallas custom_vjp does."""
+    """K1a forward, K1b backward; q, k, v, key_valid, the output and its
+    rows' softmax max and sum are saved and the probabilities recomputed
+    from them."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_valid, scale):
         q, k, v, key_valid = (t.contiguous() for t in (q, k, v, key_valid))
-        ctx.save_for_backward(q, k, v, key_valid)
+        out, m, s = attention_fwd(q, k, v, key_valid, scale)
+        ctx.save_for_backward(q, k, v, key_valid, out, m, s)
         ctx.scale = scale
-        return attention_fwd(q, k, v, key_valid, scale)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, key_valid = ctx.saved_tensors
-        dq, dk, dv = attention_bwd(q, k, v, key_valid, g.contiguous(),
-                                   ctx.scale)
+        q, k, v, key_valid, out, m, s = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, key_valid, out, m, s,
+                                   g.contiguous(), ctx.scale)
         return dq, dk, dv, None, None
 
 

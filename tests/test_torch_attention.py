@@ -105,6 +105,44 @@ def test_plain_version_matches_pallas_kernels(N):
         _close(a, b, 1e-4, f"d{name}")
 
 
+def test_plain_version_with_fewer_keys_than_queries_matches_jax():
+    """Nq != Nk (the cross-attention shape the kernels also take), D = 8:
+    against the JAX reference and its VJP, and against K1a/K1b in interpret
+    mode on keys with a valid entry in every image; each side compiled
+    once under jit, to keep the test under a second."""
+    B, H, Nq, Nk, D = 2, 1, 21, 9, 8
+    rng = np.random.RandomState(7)
+    q, g = (rng.randn(B, H, Nq, D).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(B, H, Nk, D).astype(np.float32) for _ in range(2))
+    valid = rng.rand(B, Nk) > 0.3
+    valid[:, 0] = True
+    valid[1, 1:] = False
+    scale = 1.0 / D ** 0.5
+
+    @jax.jit
+    def reference(q_, k_, v_, g_):
+        out, vjp = jax.vjp(lambda *a: jattn.masked_attention_reference(
+            *a, valid, scale), q_, k_, v_)
+        return out, vjp(g_)
+
+    @jax.jit
+    def pallas(q_, k_, v_, g_):
+        return (jattn._pallas_fwd_impl(q_, k_, v_, valid, scale),
+                jattn._pallas_bwd_impl(q_, k_, v_, valid, g_, scale))
+
+    from jax.experimental import pallas as pl
+
+    orig = pl.pallas_call
+    with mock.patch.object(pl, "pallas_call",
+                           lambda *a, **kw: orig(*a, **kw, interpret=True)):
+        wants = [reference(q, k, v, g), pallas(q, k, v, g)]
+    out, grads = _torch_fwd_bwd(q, k, v, g, valid, scale)
+    for what, (want, want_grads) in zip(("reference", "Pallas"), wants):
+        _close(out, want, 1e-5, f"out ({what})")
+        for name, a, b in zip("qkv", grads, want_grads):
+            _close(a, b, 1e-4, f"d{name} ({what})")
+
+
 def test_other_devices_raise():
     """A tensor on neither the CPU nor the card reaches no plain version."""
     t = torch.empty((1, 1, 4, 8), device="meta")

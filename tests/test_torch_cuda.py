@@ -83,21 +83,27 @@ def test_kernel_wrapper_rejects_what_it_does_not_take(cuda_device):
                                [..., ::2], valid, 0.5)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,N", [(1, 2), (16, 33), (3, 101)])
-def test_attention_kernels_match_plain_version(cuda_device, B, N):
-    """K1a forward and K1b gradients through ``masked_attention`` against
-    the plain version and its autograd gradient, float32 with TF32 off:
-    1e-5 (forward) and 1e-4 (gradients) of the largest value. Keys are
-    padded; image 0 has one valid key, the last image none."""
-    H, D = 8, 32
-    g = torch.Generator().manual_seed(B * 1000 + N)
-    q, k, v, grad = (torch.randn(B, H, N, D, generator=g).to(cuda_device)
-                     for _ in range(4))
-    valid = (torch.rand(B, N, generator=g) > 0.3).to(cuda_device)
+def _attention_inputs(device, B, Nq, Nk, seed, H=8, D=32):
+    """q and an output gradient (B, H, Nq, D), k and v (B, H, Nk, D) and a
+    padded key mask: image 0 has one valid key, the last image (of
+    several) none."""
+    g = torch.Generator().manual_seed(seed)
+    q, grad = (torch.randn(B, H, Nq, D, generator=g).to(device)
+               for _ in range(2))
+    k, v = (torch.randn(B, H, Nk, D, generator=g).to(device)
+            for _ in range(2))
+    valid = (torch.rand(B, Nk, generator=g) > 0.3).to(device)
     valid[0] = False
     valid[0, 0] = True
-    valid[-1] = False
+    if B > 1:
+        valid[-1] = False
+    return q, k, v, grad, valid
+
+
+def _hold_attention(q, k, v, grad, valid):
+    """K1a forward and K1b gradients through ``masked_attention`` against
+    the plain version and its autograd gradient, float32 with TF32 off:
+    1e-5 (forward) and 1e-4 (gradients) of the largest value."""
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -105,18 +111,61 @@ def test_attention_kernels_match_plain_version(cuda_device, B, N):
         for fn in (attention.masked_attention,
                    attention.masked_attention_reference):
             qkv = [t.clone().requires_grad_() for t in (q, k, v)]
-            out = fn(*qkv, valid, 1.0 / D ** 0.5)
+            out = fn(*qkv, valid, 1.0 / q.shape[-1] ** 0.5)
             outs.append([out, *torch.autograd.grad(out, qkv, grad)])
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    before = attention.attention_fwd.launches, attention.attention_bwd.launches
     (got, *got_g), (want, *want_g) = outs
     torch.cuda.synchronize()
     for a, b, tol in zip([got, *got_g], [want, *want_g], (1e-5, 1e-4, 1e-4,
                                                           1e-4)):
         assert (a - b).abs().max() <= tol * b.abs().max()
-    attention.masked_attention(q, k, v, valid, 0.5)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N", [(1, 2), (16, 33), (3, 101)])
+def test_attention_kernels_match_plain_version(cuda_device, B, N):
+    """K1a forward and K1b gradients through ``masked_attention`` against
+    the plain version and its autograd gradient, float32 with TF32 off:
+    1e-5 (forward) and 1e-4 (gradients) of the largest value. Keys are
+    padded; image 0 has one valid key, the last image none."""
+    q, k, v, grad, valid = _attention_inputs(cuda_device, B, N, N,
+                                             B * 1000 + N)
+    before = attention.attention_fwd.launches, attention.attention_bwd.launches
+    _hold_attention(q, k, v, grad, valid)
     assert attention.attention_fwd.launches == before[0] + 1
+    assert attention.attention_bwd.launches == before[1] + 1
+    attention.masked_attention(q, k, v, valid, 0.5)
+    assert attention.attention_fwd.launches == before[0] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Nq,Nk", [
+    (1, 1, 1), (16, 15, 15), (16, 16, 16), (16, 17, 17), (16, 128, 128),
+    (16, 257, 257), (16, 101, 37), (2, 37, 101), (1, 700, 700)])
+def test_attention_kernels_at_the_tiles_edges(cuda_device, B, Nq, Nk):
+    """The same at the edges of a lane's keys, of the row tiles and of the
+    128-token chunks, with more queries than keys and fewer, and past the
+    old kernel's shared-memory limit (700 tokens); the all-invalid image
+    averages V uniformly."""
+    q, k, v, grad, valid = _attention_inputs(cuda_device, B, Nq, Nk,
+                                             B + Nq * 1000 + Nk)
+    got = _hold_attention(q, k, v, grad, valid)
+    if B > 1:
+        assert torch.allclose(got[-1], v[-1].mean(dim=1, keepdim=True)
+                              .expand_as(got[-1]), atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_attention_backward_is_the_same_from_run_to_run(cuda_device):
+    """K1b writes every element from one lane, without atomics: two runs
+    on the same inputs give the same bits."""
+    q, k, v, grad, valid = _attention_inputs(cuda_device, 16, 101, 101, 5)
+    saved = attention.attention_fwd(q, k, v, valid, 0.25)
+    first = attention.attention_bwd(q, k, v, valid, *saved, grad, 0.25)
+    second = attention.attention_bwd(q, k, v, valid, *saved, grad, 0.25)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda
@@ -129,10 +178,12 @@ def test_attention_wrapper_rejects_what_it_does_not_take(cuda_device):
         attention.attention_fwd(q, q[:, :1], q, valid, 0.5)
     with pytest.raises(ValueError):
         attention.attention_fwd(q.transpose(2, 3), q, q, valid, 0.5)
-    big = torch.zeros((1, 1, 4096, 32), device=cuda_device)
-    with pytest.raises(ValueError, match="shared memory"):
-        attention.attention_fwd(big, big, big, torch.ones(
-            (1, 4096), dtype=torch.bool, device=cuda_device), 0.5)
+    narrow = torch.zeros((1, 2, 8, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="built for D = 32"):
+        attention.attention_fwd(narrow, narrow, narrow, valid, 0.5)
+    out, m, s = attention.attention_fwd(q, q, q, valid, 0.5)
+    with pytest.raises(ValueError):
+        attention.attention_bwd(q, q, q, valid, out, m[..., :4], s, q, 0.5)
 
 
 def _rois(device, dtype, B=3, C=16, canvas=(256, 352)):
