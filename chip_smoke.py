@@ -15,10 +15,12 @@
 3. Kernels K1a and K1b (masked attention forward and backward,
    lgd_tpu_torch/csrc/attention.cu) against the plain version and its
    autograd gradient, float32 with TF32 off, at B in {1, 16}, 8 heads,
-   N in {1, 15, 16, 17, 101, 128, 257} and 101 queries x 37 keys, D = 32,
-   with padded keys, an image whose only valid key is the fallback slot and
-   an image with no valid key; K1b run twice must give the same bits. Then
-   timed at (16, 8, 101, 32) beside the plain version and
+   N in {1, 15, 16, 17, 101, 128, 257} and 101 queries x 37 keys, at each
+   head width the kernels are built for (D in {8, 16, 32, 64}: the mini
+   configs' 64-channel FPN gives 8, the full width 32), with padded keys,
+   an image whose only valid key is the fallback slot and an image with no
+   valid key; K1b run twice must give the same bits. Then timed at
+   (16, 8, 101, 32) beside the plain version and
    scaled_dot_product_attention (the yardstick; the port never calls it):
    a CUDA graph of 200 calls replayed, which the host cannot pace, with
    CUDA events over a loop of launches beside it; and at each tile size.
@@ -50,7 +52,9 @@
 8. Kernel K3 (multilevel ROIAlign forward and backward,
    lgd_tpu_torch/csrc/roi_align.cu) against the plain version on
    adversarial ROIs (every level, past each edge, under a texel, the s_max
-   cap, invalid slots, an all-invalid image) in float32 and bf16, then at
+   cap, invalid slots, an all-invalid image; for the backward's windows a
+   whole-level ROI, one-texel levels, high corners clamped on the edge and
+   windows of several tiles) in float32 and bf16, then at
    the slice's shapes (16 x 512 ROIs of the student's bf16 and the
    teacher's float32 p2-p5 at 800x1344, forward and backward; 8 x 1000 at
    inference), held at the same limits and timed beside the plain version.
@@ -67,7 +71,9 @@
    adversarial offsets (integer, fractional, negative, past each border by
    under a texel and by more, exactly -1 and the last row or column,
    beyond +-6 px, +-1e3; masks of 0 and 1, unmodulated, stride 2,
-   dilation 2) in float32 and bf16, then at R-101's res3-res5 shapes
+   dilation 2; for the backward's tiles offsets beyond the windows' halo,
+   samples pushed off every border, a mask of zeros and a partial stage of
+   channels) in float32 and bf16, then at R-101's res3-res5 shapes
    (batch 16 at 800x1344, bf16, offsets N(0, 1.5) px), held at the same
    limits and timed beside the plain version and F.grid_sample times the
    mask (the yardstick; the port never calls it).
@@ -81,7 +87,10 @@
 13. RetinaNet R-101-DCNv2 LGD training through ``do_train``, checked and
    timed as in 5 (gradients clipped by value, ``dcn_train_cfg``), with
    K1a/K1b 5 and K4 forward and backward 30 each per step and the offset
-   convs trained; then ``do_test(eval_teacher=True)``.
+   convs trained; K4's backward held and timed again on its own inputs
+   of the third step, one per res stage (offsets that vary smoothly over
+   the map, unlike 11's independent draws); then
+   ``do_test(eval_teacher=True)``.
 14. The float32 card-vs-CPU ``train_forward`` of 7 for the R-101-DCNv2
    model with the same drawn offset convs.
 
@@ -513,7 +522,8 @@ def graph_ms(make, iters=200):
 
 def phase_attention(device, card):
     """K1a and K1b against the plain version and its autograd gradient at
-    ATTN_SHAPES, K1b run twice and bit-equal; then timed at the teacher's
+    ATTN_SHAPES and every built head width, K1b run twice and bit-equal;
+    then timed at the teacher's
     shape (16, 8, 101, 32) beside the plain version and
     scaled_dot_product_attention (the yardstick; the port never calls it),
     by replaying a CUDA graph and by CUDA events over a loop. Returns their
@@ -521,35 +531,42 @@ def phase_attention(device, card):
     from lgd_tpu_torch.ops import attention as A
 
     err_f = err_g = 0.0
+    by_width = {}
     with NoTF32():
-        for B, Nq, Nk in ATTN_SHAPES:
-            q, k, v, g, valid = attention_inputs(B, Nq, B * 1000 + Nq + Nk,
-                                                 device, Nk=Nk)
-            scale = 1.0 / q.shape[-1] ** 0.5
+        for D, (B, Nq, Nk) in ((D, shape) for D in A.BUILT_D
+                               for shape in ATTN_SHAPES):
+            q, k, v, g, valid = attention_inputs(
+                B, Nq, B * 1000 + Nq + Nk + D, device, D=D, Nk=Nk)
+            scale = 1.0 / D ** 0.5
+            what = f"B={B} Nq={Nq} Nk={Nk} D={D}"
             res = []
             for fn in (A.masked_attention, A.masked_attention_reference):
                 qkv = [t.clone().requires_grad_() for t in (q, k, v)]
                 out = fn(*qkv, valid, scale)
                 res.append([out.detach(), *torch.autograd.grad(out, qkv, g)])
-            e_f, e_g = hold_attention(*res, f"B={B} Nq={Nq} Nk={Nk}")
+            e_f, e_g = hold_attention(*res, what)
             err_f, err_g = max(err_f, e_f), max(err_g, e_g)
+            w_f, w_g = by_width.get(D, (0.0, 0.0))
+            by_width[D] = (max(w_f, e_f), max(w_g, e_g))
             # K1b twice on the same inputs: the same bits
             saved = A.attention_fwd(q, k, v, valid, scale)
             first = A.attention_bwd(q, k, v, valid, *saved, g, scale)
             second = A.attention_bwd(q, k, v, valid, *saved, g, scale)
             check(all(torch.equal(a, b) for a, b in zip(first, second)),
-                  f"K1b differs from run to run at B={B} Nq={Nq} Nk={Nk}")
+                  f"K1b differs from run to run at {what}")
             # the image with no valid key averages V uniformly
             if B > 1:
                 got = res[0][0]
                 check(torch.allclose(got[-1], v[-1].mean(
                     dim=1, keepdim=True).expand_as(got[-1]), atol=1e-5),
-                      "all-invalid image is not a uniform average")
+                      f"all-invalid image is not a uniform average at {what}")
     torch.cuda.synchronize()
-    log(f"K1a/K1b: {len(ATTN_SHAPES)} shapes (B, Nq, Nk) {ATTN_SHAPES} "
-        f"match the plain version (max abs err forward {err_f:.3e}, "
-        f"gradients {err_g:.3e}; tolerances {ATTN_FWD_TOL} / {ATTN_GRAD_TOL} "
-        f"of the largest value); K1b bit-equal from run to run")
+    log(f"K1a/K1b: {len(ATTN_SHAPES)} shapes (B, Nq, Nk) {ATTN_SHAPES} at "
+        f"D in {A.BUILT_D} match the plain version (max abs err forward "
+        f"{err_f:.3e}, gradients {err_g:.3e}; by D: " + ", ".join(
+            f"{D} {e[0]:.3e} / {e[1]:.3e}" for D, e in by_width.items())
+        + f"; tolerances {ATTN_FWD_TOL} / {ATTN_GRAD_TOL} of the largest "
+        f"value); K1b bit-equal from run to run")
 
     B, H, N, D = 16, 8, 101, 32
     q, k, v, g, valid = attention_inputs(B, N, 7, device)
@@ -610,11 +627,15 @@ FPN_STRIDES = (4, 8, 16, 32)   # p2-p5, the ROI heads' levels
 
 
 def roi_inputs(B, C, canvas, dtype, device, seed, n_random):
-    """A p2-p5 pyramid (B, C) of a canvas and B x (12 + n_random) ROIs: the
+    """A p2-p5 pyramid (B, C) of a canvas and B x (16 + n_random) ROIs: the
     fixed cases (every level, past each edge, under a texel, sqrt(area) of
-    112 and 224, the s_max cap, an empty box, a thin one), then random
-    boxes of log-uniform size; slot 8 of image 0 is invalid, and so is the
-    whole last image."""
+    112 and 224, the s_max cap, an empty box, a thin one; then, for the
+    backward's windows, the whole canvas (the whole top level), a box
+    ending on the bottom-right edge (high corners clamped onto one
+    texel), and a wide and a tall box on p2 whose capped bins span
+    several of the kernel's 32-texel window tiles), then random boxes of
+    log-uniform size; slot 8 of image 0 is invalid, and so is the whole
+    last image."""
     g = torch.Generator().manual_seed(seed)
     H, W = canvas
     feats = [torch.randn(B, C, -(-H // s), -(-W // s), generator=g)
@@ -625,7 +646,9 @@ def roi_inputs(B, C, canvas, dtype, device, seed, n_random):
         [5.0, 7.0, 117.0, 119.0], [0.0, 0.0, 224.0, 224.0],
         [0.0, 0.0, 448.0, 448.0], [-300.0, -200.0, W + 300.0, H + 200.0],
         [30.0, 20.0, 80.0, 110.0], [64.0, 64.0, 64.0, 64.0],
-        [50.0, 40.0, 160.0, 128.0], [12.0, 33.0, 150.0, 41.0]])
+        [50.0, 40.0, 160.0, 128.0], [12.0, 33.0, 150.0, 41.0],
+        [0.0, 0.0, W, H], [W - 40.0, H - 40.0, W, H],
+        [10.0, 10.0, 400.0, 30.0], [20.0, 15.0, 44.0, 700.0]])
     ctr = torch.rand(B, n_random, 2, generator=g) * torch.tensor([W, H])
     wh = torch.exp(torch.rand(B, n_random, 2, generator=g) * 6.5) + 1.0
     boxes = torch.cat([fixed.expand(B, -1, -1),
@@ -802,8 +825,10 @@ def phase_roi_align(device, card):
     err_f = err_b = 0.0
     checked = 0
     with NoTF32():
+        # the third canvas has one-texel p5 and 2 x 2 p4 levels
         for B, C, canvas, n_random in ((3, 32, (256, 352), 60),
-                                       (2, 256, (800, 1344), 40)):
+                                       (2, 256, (800, 1344), 40),
+                                       (3, 16, (32, 32), 30)):
             for dtype in (torch.float32, torch.bfloat16):
                 e_f, e_b = check_roi_case(B, C, canvas, n_random, dtype,
                                           device, out)
@@ -812,8 +837,10 @@ def phase_roi_align(device, card):
     torch.cuda.synchronize()
     log(f"K3: {checked} adversarial cases (float32 and bfloat16 levels, "
         f"edges, tiny boxes, the s_max cap, invalid slots and an all-invalid "
-        f"image) match the plain version (max abs err forward {err_f:.3e}, "
-        f"backward {err_b:.3e}; tolerance {ROI_TOL} of the largest value, "
+        f"image; whole-level ROIs, one-texel levels, high corners clamped "
+        f"on the edge, windows of several tiles) match the plain version "
+        f"(max abs err forward {err_f:.3e}, backward {err_b:.3e}; "
+        f"tolerance {ROI_TOL} of the largest value, "
         f"one bf16 ulp more after rounding)")
 
     # the slice's shapes: held against the plain version at the same
@@ -944,14 +971,76 @@ def dcn_inputs(B, C, H, W, stride=1, dilation=1, modulated=True,
             torch.from_numpy(off).to(device), mask)
 
 
+# K4 backward's tiles (8 x 16 output positions, an input window 2 texels
+# wider than the unmoved taps' reach, channels staged 4 at a time): cases
+# at their edges, (kind, B, C, H, W, stride, dilation). "spill": offsets
+# of N(0, 6) px, mostly beyond the window's halo; "borders": each image's
+# samples pushed across one border, partly and wholly off the image;
+# "zero mask": every share 0; "plain": the adversarial draw of
+# ``dcn_inputs`` (here stride 2 with dilation 2). 22 and 18 channels
+# leave a partial stage; "tiny gradient": gradients near 1e-33, under
+# the bound the fixed-point window takes, which add in float32 instead;
+# "nan gradient" and "inf gradient": one gradient in 500 NaN, or +-inf
+# (times a zero mask, NaN), which must reach dx where the plain version's
+# do.
+DCN_TILE_CASES = (("spill", 2, 22, 40, 56, 1, 1),
+                  ("spill", 2, 20, 33, 47, 2, 2),
+                  ("borders", 4, 16, 35, 50, 1, 1),
+                  ("zero mask", 2, 16, 20, 36, 1, 1),
+                  ("plain", 2, 18, 37, 45, 2, 2),
+                  ("tiny gradient", 2, 16, 20, 36, 1, 1),
+                  ("nan gradient", 2, 16, 20, 36, 1, 1),
+                  ("inf gradient", 2, 16, 20, 36, 1, 1))
+
+
+def dcn_tile_case(kind, B, C, H, W, stride, dilation, dtype, device, seed):
+    """x, offsets, mask and the columns' gradient of a ``DCN_TILE_CASES``
+    entry."""
+    import numpy as np
+
+    from lgd_tpu_torch.ops import deform_conv as D
+
+    x, off, mask = dcn_inputs(B, C, H, W, stride, dilation, True, dtype,
+                              device, seed,
+                              spread={"spill": 6.0, "borders": 1.5}.get(kind))
+    if kind == "borders":
+        # image 0 samples in y from (-3, 0), image 1 from (H - 1, H + 2),
+        # images 2 and 3 likewise in x: some corners in, most out
+        rng = np.random.RandomState(seed)
+        Ho, Wo = off.shape[-2:]
+        base = D.base_grid(Ho, Wo, 3, stride, dilation, device)
+        off = off.reshape(B, 9, 2, Ho, Wo)
+        for img, (axis, lo) in enumerate(((0, -3.0), (0, H - 1.0),
+                                          (1, -3.0), (1, W - 1.0))):
+            u = torch.from_numpy(rng.rand(9, Ho, Wo).astype(np.float32))
+            off[img, :, axis] = lo + 3.0 * u.to(device) - base[axis]
+        off = off.reshape(B, 18, Ho, Wo).contiguous()
+    if kind == "zero mask":
+        mask = torch.zeros_like(mask)
+    grad = torch.randn(B, C, 9, *off.shape[-2:],
+                       generator=torch.Generator().manual_seed(H))
+    if kind == "tiny gradient":
+        grad = grad * 1e-33
+    if kind in ("nan gradient", "inf gradient"):
+        g = torch.Generator().manual_seed(W)
+        hit = torch.rand(grad.shape, generator=g) < 0.002
+        bad = (torch.full_like(grad, float("nan")) if kind == "nan gradient"
+               else torch.sign(grad) * float("inf"))
+        grad = torch.where(hit, bad, grad)
+    return x, off, mask, grad.to(device, dtype)
+
+
 def hold_dcn(x, offsets, mask, stride, dilation, grad, what):
     """K4 forward and, given the columns' gradient, backward against the
     plain version on the same inputs: the columns bit for bit in float32
     and within one bf16 ulp in bfloat16; the backward's recomputed columns
     equal to the forward's; dx, the offsets' and the mask's gradients
     against autograd of the plain version on float32 copies, within
-    DCN_TOL of each one's largest value (bfloat16 dx one ulp more).
-    Returns the largest absolute errors of the forward and the
+    DCN_TOL of each one's largest value (bfloat16 dx one ulp more). Where
+    the gradients hold NaN or inf: dx NaN, +inf and -inf where the plain
+    version's are, the offsets' and the mask's gradients not finite where
+    its are, and the finite values within the same limits of the largest
+    finite one. Returns the largest absolute errors of the forward and the
     backward."""
     from lgd_tpu_torch.ops import deform_conv as D
 
@@ -984,10 +1073,22 @@ def hold_dcn(x, offsets, mask, stride, dilation, grad, what):
             continue
         check(a.dtype == (x.dtype if name == "dx" else torch.float32)
               and a.shape == b.shape, (name, a.dtype, tuple(a.shape)))
-        b = b.to(a.dtype).float()
-        e = (a.float() - b).abs()
+        bf16 = a.dtype == torch.bfloat16
+        a, b = a.float(), b.to(a.dtype).float()
+        finite = torch.isfinite(b)
+        if name == "dx":
+            check(all(torch.equal(f(a), f(b)) for f in (
+                torch.isnan, torch.isposinf, torch.isneginf)),
+                f"K4 dx: NaN or inf elsewhere than the plain version's "
+                f"({what})")
+        else:
+            check(torch.equal(torch.isfinite(a), finite),
+                  f"K4 {name}: not finite elsewhere than the plain "
+                  f"version's ({what})")
+        a, b = torch.where(finite, a, 0.0), torch.where(finite, b, 0.0)
+        e = (a - b).abs()
         tol = DCN_TOL * b.abs().max()
-        if a.dtype == torch.bfloat16:
+        if bf16:
             tol = tol + bf16_ulp(b)
         check((e <= tol).all(), f"K4 {name} beyond tolerance ({what}): "
                                 f"{e.max().item()} (largest "
@@ -1065,14 +1166,27 @@ def phase_deform_conv(device, card):
             e_f, e_b = hold_dcn(x, off, mask, stride, dil, grad, what)
             err_f, err_b = max(err_f, e_f), max(err_b, e_b)
             checked += 1
+    for kind, B, C, H, W, stride, dil in DCN_TILE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, off, mask, grad = dcn_tile_case(kind, B, C, H, W, stride,
+                                               dil, dtype, device,
+                                               seed=C + H + W)
+            what = (f"{kind}, {dtype}, {(B, C, H, W)}, stride {stride}, "
+                    f"dilation {dil}")
+            e_f, e_b = hold_dcn(x, off, mask, stride, dil, grad, what)
+            err_f, err_b = max(err_f, e_f), max(err_b, e_b)
+            checked += 1
     torch.cuda.synchronize()
     log(f"K4: {checked} adversarial cases (integer, fractional and "
         f"negative offsets, past each border by under a texel and by more, "
         f"exactly -1 and the last row and column, beyond +-6 px, +-1e3; "
-        f"masks of 0 and 1, unmodulated, stride 2, dilation 2) match the "
-        f"plain version (max abs err forward {err_f:.3e}, float32 bit for "
-        f"bit; backward {err_b:.3e}; tolerance {DCN_TOL} of the largest "
-        f"value, one bf16 ulp more)")
+        f"masks of 0 and 1, unmodulated, stride 2, dilation 2; for the "
+        f"backward's tiles: offsets of N(0, 6) px beyond the windows' "
+        f"halo, samples pushed off every border, a mask of zeros, partial "
+        f"channel stages, gradients near 1e-33) match the plain version "
+        f"(max abs err forward {err_f:.3e}, float32 bit for bit; backward "
+        f"{err_b:.3e}; tolerance {DCN_TOL} of the largest value, one bf16 "
+        f"ulp more)")
 
     records, errs = None, [0.0, 0.0]
     for name, C, H, W, layers in DCN_SLICE:
@@ -1855,19 +1969,84 @@ def phase_dcn_inference(device, card, what, opts):
     return launches
 
 
+class CaptureK4Backward:
+    """Inside the block, keeps the inputs of the first K4 backward call of
+    each input shape after the first ``after`` calls, in ``inputs`` (shape
+    -> grad_cols, x, offsets, mask, stride, dilation), copied to the host
+    so that the device's peak memory stays the model's. The model finds
+    ``deform_conv.deform_sample_bwd`` by module attribute, and the kernel's
+    wrapper counts its launches on whatever that attribute holds, so the
+    stand-in carries the count and hands it back at the end."""
+
+    def __init__(self, after):
+        self.after, self.calls, self.inputs = after, 0, {}
+
+    def __enter__(self):
+        from lgd_tpu_torch.ops import deform_conv as D
+
+        self.saved = kernel = D.deform_sample_bwd
+
+        def capture(grad_cols, x, offsets, mask, kernel_size=3, stride=1,
+                    dilation=1):
+            self.calls += 1
+            if self.calls > self.after and tuple(x.shape) not in self.inputs:
+                self.inputs[tuple(x.shape)] = (
+                    *(None if t is None else t.detach().cpu()
+                      for t in (grad_cols, x, offsets, mask)),
+                    stride, dilation)
+            return kernel(grad_cols, x, offsets, mask, kernel_size, stride,
+                          dilation)
+
+        capture.launches = kernel.launches
+        D.deform_sample_bwd = capture
+        return self
+
+    def __exit__(self, *exc):
+        from lgd_tpu_torch.ops import deform_conv as D
+
+        self.saved.launches = D.deform_sample_bwd.launches
+        D.deform_sample_bwd = self.saved
+
+
 def phase_dcn_training(device, card):
     """RetinaNet R-101-DCNv2 LGD training through do_train at batch 16 on
     the 800x1344 canvases (offset convs drawn), K1a/K1b 5 and K4 forward
-    and backward 30 each per step, then do_test(eval_teacher=True).
-    Returns the launches of the do_train run."""
+    and backward 30 each per step, then do_test(eval_teacher=True); K4's
+    backward is held and timed again on its own inputs of the third step,
+    whose offsets vary smoothly across the map, unlike the independent
+    draws of phase_deform_conv. Returns the launches of the do_train
+    run."""
+    from lgd_tpu_torch.ops import deform_conv as D
+
     cfg = dcn_train_cfg()
     images, sizes = eval_batch(cfg, device)
-    model, train = phase_train(
-        device, card, cfg, "RetinaNet, DCNv2 in res3-res5", DCN_TRAIN_STEPS,
-        DCN_TIMED_STEPS, 2, {"K1a": 5, "K1b": 5, "K4 forward": DCN_UNITS,
-                             "K4 backward": DCN_UNITS},
-        RETINANET_LOSSES, prepare=lambda m: draw_offset_convs(m, images,
-                                                               sizes))
+    with CaptureK4Backward(after=2 * DCN_UNITS) as captured:
+        model, train = phase_train(
+            device, card, cfg, "RetinaNet, DCNv2 in res3-res5",
+            DCN_TRAIN_STEPS, DCN_TIMED_STEPS, 2,
+            {"K1a": 5, "K1b": 5, "K4 forward": DCN_UNITS,
+             "K4 backward": DCN_UNITS}, RETINANET_LOSSES,
+            prepare=lambda m: draw_offset_convs(m, images, sizes))
+    check(len(captured.inputs) == len(DCN_SLICE), captured.inputs.keys())
+    for shape, inputs in sorted(captured.inputs.items()):
+        grad, x, off, mask = (None if t is None else t.to(device)
+                              for t in inputs[:4])
+        stride, dil = inputs[4:]
+        Ho, Wo = off.shape[-2:]
+        o = off.reshape(-1, 9, 2, Ho, Wo)
+        _, e_b = hold_dcn(x, off, mask, stride, dil, grad,
+                          f"training path's input {shape}")
+        ms = cuda_ms(lambda: D.deform_sample_bwd(grad, x, off, mask, 3,
+                                                 stride, dil), 10, 2)
+        b_bound, b_by = dcn_bound(x, off, mask, forward=False)
+        log(f"K4 backward on the training path's own input {shape} "
+            f"{x.dtype} (step 2): offsets spread {off.std().item():.3f} px, "
+            f"neighbours' offsets differ by "
+            f"{(o[..., 1:] - o[..., :-1]).std().item():.3f} px; max abs err "
+            f"{e_b:.3e}, kernel {ms:.4f} ms, bound {b_bound:.6f} ms ({b_by}) "
+            f"[{card}]")
+    del captured
+    torch.cuda.empty_cache()
     phase_eval_teacher(model, cfg, device, card,
                        {"K1a": 5, "K2": 1, "K4 forward": DCN_UNITS})
     del model

@@ -57,10 +57,16 @@
 //     write dK and dV, in one launch (blockIdx.x picks the role). Every
 //     output element is written by one lane: no atomics, so the result is
 //     the same from run to run.
-// D is a template parameter (a lane per column), built for D = 32 only.
-// Shared memory: at most 63 KB for K1a and 94 KB for K1b (48 rows per
-// tile; 55 and 79 KB at the 36 rows used for 101 tokens), so that two K1b
-// blocks fit on an SM.
+// D is a template parameter, built for the head widths 8, 16, 32 and 64
+// (the configs' FPN widths over 8 heads). The dot products loop over the D
+// columns at any width; the weighted sums give a lane one column below
+// D = 64 and D / 32 columns from there, and below D = 32 split a chunk's
+// tokens among the 32 / D lanes of each column and add their sums with
+// shuffles (Lanes<D>). At D = 32 the arithmetic and its order are those
+// of the D = 32-only build that came before.
+// Shared memory at D = 32: at most 63 KB for K1a and 94 KB for K1b (48
+// rows per tile; 55 and 79 KB at the 36 rows used for 101 tokens), so that
+// two K1b blocks fit on an SM; at D = 64 103 and 142 KB, one K1b block.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -79,7 +85,21 @@ constexpr int kChunk = 128;       // tokens streamed per step, 4 per lane
 constexpr int kLd = kChunk + 1;   // row stride of a transposed chunk: odd
 constexpr float kMasked = -1e9f;
 constexpr int kMaxDevices = 64;
-constexpr int kBuiltD = 32;
+
+// How a warp's 32 lanes cover D columns in the weighted sums: kColLanes
+// lanes per set of columns, kCols columns per lane, kGroups lane groups
+// that split the tokens, kParts partial sums per column (two, as short
+// chains, while a lane has one column), kAcc sums per row and lane.
+template <int D>
+struct Lanes {
+  static_assert(D % 4 == 0 && (D <= 32 ? 32 % D == 0 : D % 32 == 0),
+                "D divides 32 or is a multiple of 32");
+  static constexpr int kColLanes = D < 32 ? D : 32;
+  static constexpr int kGroups = 32 / kColLanes;
+  static constexpr int kCols = D / kColLanes;
+  static constexpr int kParts = kCols == 1 ? 2 : 1;
+  static constexpr int kAcc = kCols * kParts;
+};
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -155,6 +175,55 @@ __device__ __forceinline__ float masked_logit(float dot, float scale,
   return !in_range ? -INFINITY : valid != 0.0f ? dot * scale : kMasked;
 }
 
+// acc[r][.] += w_r(j) x(j) over the chunk's tokens j < n, for the warp's 4
+// rows (weights w4[j], a float4 per token) and the lane's columns of a
+// transposed chunk xt (row stride ld): the lane's group takes tokens
+// 4 g + 4 kGroups u, in order, alternating between its two partial sums
+template <int D>
+__device__ __forceinline__ void weighted_sum(float (&acc)[4][Lanes<D>::kAcc],
+                                             const float4* w4,
+                                             const float* xt, int ld, int n,
+                                             int lane) {
+  using L = Lanes<D>;
+  const int grp = lane / L::kColLanes, col = lane % L::kColLanes;
+  for (int j = 4 * grp; j < n; j += 4 * L::kGroups) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float4 w = w4[j + t];
+#pragma unroll
+      for (int cc = 0; cc < L::kCols; ++cc) {
+        const float x = xt[(col + 32 * cc) * ld + j + t];
+        const int a = cc * L::kParts + t % L::kParts;
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          acc[r][a] = __fmaf_rn(part(w, r), x, acc[r][a]);
+      }
+    }
+  }
+}
+
+// Adds the lane groups' sums of each column (below D = 32); every lane of
+// the warp takes part
+template <int D>
+__device__ __forceinline__ void reduce_groups(
+    float (&acc)[4][Lanes<D>::kAcc]) {
+  using L = Lanes<D>;
+#pragma unroll
+  for (int o = L::kColLanes; o < 32; o <<= 1)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int a = 0; a < L::kAcc; ++a)
+        acc[r][a] += __shfl_xor_sync(0xffffffffu, acc[r][a], o);
+}
+
+// Column col + 32 cc of a row's sums
+template <int D>
+__device__ __forceinline__ float column_total(const float* acc, int cc) {
+  using L = Lanes<D>;
+  return L::kParts == 2 ? acc[2 * cc] + acc[2 * cc + 1] : acc[cc];
+}
+
 // K1a. A block takes `rows` query rows of one head, 4 per warp; the keys
 // stream through in chunks of 128, 4 per lane (keys lane + 32 u), with an
 // online softmax (running max and sum per row, rescaled per chunk).
@@ -166,7 +235,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 float* __restrict__ out, float* __restrict__ row_m,
                 float* __restrict__ row_s, int heads, int nq, int nk,
                 int rows, float scale) {
-  static_assert(D == 32, "a lane per column");
+  using L = Lanes<D>;
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int bh = blockIdx.y, b = bh / heads;
@@ -187,12 +256,13 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   const int r0 = kRowsPerWarp * warp;
   float4* e4 = ebuf + warp * kChunk;
-  float m[4], s[4], o[4][2];
+  float m[4], s[4], o[4][L::kAcc];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     m[r] = -INFINITY;
     s[r] = 0.0f;
-    o[r][0] = o[r][1] = 0.0f;
+#pragma unroll
+    for (int a = 0; a < L::kAcc; ++a) o[r][a] = 0.0f;
   }
   for (int k0 = 0; k0 < nk; k0 += kChunk) {
     const int n = min(kChunk, nk - k0);
@@ -243,33 +313,29 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       m[r] = m_new;
       s[r] = s[r] * alpha + warp_sum(csum);
-      o[r][0] *= alpha;
-      o[r][1] *= alpha;
+#pragma unroll
+      for (int a = 0; a < L::kAcc; ++a) o[r][a] *= alpha;
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u)
       e4[lane + 32 * u] =
           make_float4(acc[0][u], acc[1][u], acc[2][u], acc[3][u]);
     __syncwarp();
-    // out[i, d] += e_ij v_j[d], lane per column
-    const float* v_col = vt + lane * kLd;
-    for (int j = 0; j < n; j += 4) {
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float4 w = e4[j + t];
-        const float x = v_col[j + t];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          o[r][t & 1] = __fmaf_rn(part(w, r), x, o[r][t & 1]);
-      }
-    }
+    // out[i, d] += e_ij v_j[d]
+    weighted_sum<D>(o, e4, vt, kLd, n, lane);
   }
+  reduce_groups<D>(o);
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int i = r0 + r;
     if (i >= n_rows) break;
     const int64_t row = static_cast<int64_t>(bh) * nq + row0 + i;
-    out[row * D + lane] = nk > 0 ? (o[r][0] + o[r][1]) / s[r] : 0.0f;
+    if (lane < L::kColLanes) {
+#pragma unroll
+      for (int cc = 0; cc < L::kCols; ++cc)
+        out[row * D + lane + 32 * cc] =
+            nk > 0 ? column_total<D>(o[r], cc) / s[r] : 0.0f;
+    }
     if (lane == 0) {
       row_m[row] = m[r];
       row_s[row] = s[r];
@@ -320,9 +386,7 @@ __device__ void attn_bwd_dq(float* smem, const float* __restrict__ q,
   const int r0 = kRowsPerWarp * warp;
   const bool active = r0 < rows;  // a block's warps cover both roles' tiles
   float4* ds4 = dsbuf + warp * kChunk;
-  float acc_q[4][2];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) acc_q[r][0] = acc_q[r][1] = 0.0f;
+  float acc_q[4][Lanes<D>::kAcc] = {};
   for (int k0 = 0; k0 < nk; k0 += kChunk) {
     const int n = min(kChunk, nk - k0);
     __syncthreads();
@@ -378,25 +442,19 @@ __device__ void attn_bwd_dq(float* smem, const float* __restrict__ q,
       ds4[j] = make_float4(ds[0], ds[1], ds[2], ds[3]);
     }
     __syncwarp();
-    // dq[i, d] += dS_ij k_j[d], lane per column
-    const float* k_col = kt + lane * kLd;
-    for (int j = 0; j < n; j += 4) {
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float4 w = ds4[j + t];
-        const float x = k_col[j + t];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          acc_q[r][t & 1] = __fmaf_rn(part(w, r), x, acc_q[r][t & 1]);
-      }
-    }
+    // dq[i, d] += dS_ij k_j[d]
+    weighted_sum<D>(acc_q, ds4, kt, kLd, n, lane);
   }
   if (!active) return;
+  reduce_groups<D>(acc_q);
+  if (lane >= Lanes<D>::kColLanes) return;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     if (r0 + r >= n_rows) break;
-    dq[q0 + static_cast<int64_t>(r0 + r) * D + lane] =
-        (acc_q[r][0] + acc_q[r][1]) * scale;
+#pragma unroll
+    for (int cc = 0; cc < Lanes<D>::kCols; ++cc)
+      dq[q0 + static_cast<int64_t>(r0 + r) * D + lane + 32 * cc] =
+          column_total<D>(acc_q[r], cc) * scale;
   }
 }
 
@@ -441,10 +499,7 @@ __device__ void attn_bwd_dkv(float* smem, const float* __restrict__ q,
   const bool active = r0 < rows;
   float4* p4 = pbuf + warp * kChunk;
   float4* ds4 = dsbuf + warp * kChunk;
-  float acc_v[4][2], acc_k[4][2];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-    acc_v[r][0] = acc_v[r][1] = acc_k[r][0] = acc_k[r][1] = 0.0f;
+  float acc_v[4][Lanes<D>::kAcc] = {}, acc_k[4][Lanes<D>::kAcc] = {};
   for (int i0 = 0; i0 < nq; i0 += kChunk) {
     const int n = min(kChunk, nq - i0);
     __syncthreads();
@@ -509,29 +564,23 @@ __device__ void attn_bwd_dkv(float* smem, const float* __restrict__ q,
       ds4[i] = make_float4(ds[0], ds[1], ds[2], ds[3]);
     }
     __syncwarp();
-    // dv[j, d] += P_ij dO_i[d], dk[j, d] += dS_ij q_i[d], lane per column
-    const float* g_col = gt + lane * kLd;
-    const float* q_col = qt + lane * kLd;
-    for (int i = 0; i < n; i += 4) {
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float4 wp = p4[i + t], wd = ds4[i + t];
-        const float gx = g_col[i + t], qx = q_col[i + t];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          acc_v[r][t & 1] = __fmaf_rn(part(wp, r), gx, acc_v[r][t & 1]);
-          acc_k[r][t & 1] = __fmaf_rn(part(wd, r), qx, acc_k[r][t & 1]);
-        }
-      }
-    }
+    // dv[j, d] += P_ij dO_i[d], dk[j, d] += dS_ij q_i[d]
+    weighted_sum<D>(acc_v, p4, gt, kLd, n, lane);
+    weighted_sum<D>(acc_k, ds4, qt, kLd, n, lane);
   }
   if (!active) return;
+  reduce_groups<D>(acc_v);
+  reduce_groups<D>(acc_k);
+  if (lane >= Lanes<D>::kColLanes) return;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     if (r0 + r >= n_keys) break;
     const int64_t row = k0 + static_cast<int64_t>(r0 + r) * D;
-    dv[row + lane] = acc_v[r][0] + acc_v[r][1];
-    dk[row + lane] = (acc_k[r][0] + acc_k[r][1]) * scale;
+#pragma unroll
+    for (int cc = 0; cc < Lanes<D>::kCols; ++cc) {
+      dv[row + lane + 32 * cc] = column_total<D>(acc_v[r], cc);
+      dk[row + lane + 32 * cc] = column_total<D>(acc_k[r], cc) * scale;
+    }
   }
 }
 
@@ -545,7 +594,6 @@ attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 float* __restrict__ dq, float* __restrict__ dk,
                 float* __restrict__ dv, int heads, int nq, int nk,
                 int q_rows, int k_rows, float scale) {
-  static_assert(D == 32, "a lane per column");
   extern __shared__ __align__(16) float smem[];
   const int q_tiles = (nq + q_rows - 1) / q_rows;
   if (static_cast<int>(blockIdx.x) < q_tiles)
@@ -597,37 +645,78 @@ int allow_smem(const void* kernel, std::atomic<bool>* done, int device,
   return static_cast<int>(err);
 }
 
-std::atomic<bool> fwd_ready[kMaxDevices];
-std::atomic<bool> bwd_ready[kMaxDevices];
+template <int D>
+int launch_fwd(const float* q, const float* k, const float* v,
+               const uint8_t* key_valid, float* out, float* m, float* s,
+               int batch, int heads, int nq, int nk, float scale, int device,
+               int smem_limit, cudaStream_t stream) {
+  static std::atomic<bool> ready[kMaxDevices];
+  const int rows = fit_rows(nq);
+  const size_t smem = fwd_smem(D, rows);
+  if (smem > static_cast<size_t>(smem_limit))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = allow_smem(reinterpret_cast<const void*>(attn_fwd_kernel<D>),
+                       ready, device, smem_limit);
+  if (err != 0) return err;
+  const dim3 grid((nq + rows - 1) / rows, batch * heads);
+  attn_fwd_kernel<D><<<grid, 32 * warps_for(rows), smem, stream>>>(
+      q, k, v, key_valid, out, m, s, heads, nq, nk, rows, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bwd(const float* q, const float* k, const float* v,
+               const uint8_t* key_valid, const float* o, const float* m,
+               const float* s, const float* g, float* dq, float* dk,
+               float* dv, int batch, int heads, int nq, int nk, float scale,
+               int device, int smem_limit, cudaStream_t stream) {
+  static std::atomic<bool> ready[kMaxDevices];
+  const int q_rows = fit_rows(nq), k_rows = fit_rows(nk);
+  const size_t smem = bwd_smem(D, q_rows, k_rows);
+  if (smem > static_cast<size_t>(smem_limit))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = allow_smem(reinterpret_cast<const void*>(attn_bwd_kernel<D>),
+                       ready, device, smem_limit);
+  if (err != 0) return err;
+  const dim3 grid((nq + q_rows - 1) / q_rows + (nk + k_rows - 1) / k_rows,
+                  batch * heads);
+  const int threads = 32 * warps_for(q_rows > k_rows ? q_rows : k_rows);
+  attn_bwd_kernel<D><<<grid, threads, smem, stream>>>(
+      q, k, v, key_valid, o, m, s, g, dq, dk, dv, heads, nq, nk, q_rows,
+      k_rows, scale);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
 // q (B, H, Nq, D), k and v (B, H, Nk, D) float32 contiguous, 16-byte
-// aligned, D = 32; key_valid (B, Nk) bool; writes out (B, H, Nq, D) and the
-// rows' softmax max m and sum s (B, H, Nq). The kernel may take
-// `smem_limit` bytes of shared memory on `device`. Shared memory does not
-// depend on the number of tokens, which stream through in chunks. Returns
-// the cudaError_t of the launch.
+// aligned, D one of 8, 16, 32 and 64; key_valid (B, Nk) bool; writes out
+// (B, H, Nq, D) and the rows' softmax max m and sum s (B, H, Nq). The
+// kernel may take `smem_limit` bytes of shared memory on `device`. Shared
+// memory does not depend on the number of tokens, which stream through in
+// chunks. Returns the cudaError_t of the launch (cudaErrorInvalidValue for
+// another D).
 extern "C" int lgd_attn_fwd(const float* q, const float* k, const float* v,
                             const uint8_t* key_valid, float* out, float* m,
                             float* s, int batch, int heads, int nq, int nk,
                             int d, float scale, int device, int smem_limit,
                             void* stream) {
-  if (d != kBuiltD || batch * heads > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch * heads > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || heads == 0 || nq == 0) return 0;
-  const int rows = fit_rows(nq);
-  const size_t smem = fwd_smem(d, rows);
-  if (smem > static_cast<size_t>(smem_limit))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const void* kernel = reinterpret_cast<const void*>(attn_fwd_kernel<kBuiltD>);
-  int err = allow_smem(kernel, fwd_ready, device, smem_limit);
-  if (err != 0) return err;
-  const dim3 grid((nq + rows - 1) / rows, batch * heads);
-  attn_fwd_kernel<kBuiltD><<<grid, 32 * warps_for(rows), smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, key_valid, out, m, s, heads, nq, nk, rows, scale);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define LGD_ATTN_FWD(D)                                                    \
+  case D:                                                                  \
+    return launch_fwd<D>(q, k, v, key_valid, out, m, s, batch, heads, nq, \
+                         nk, scale, device, smem_limit, st);
+  switch (d) {
+    LGD_ATTN_FWD(8)
+    LGD_ATTN_FWD(16)
+    LGD_ATTN_FWD(32)
+    LGD_ATTN_FWD(64)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef LGD_ATTN_FWD
 }
 
 // As lgd_attn_fwd's inputs plus its out, m and s and the output gradient g
@@ -638,22 +727,21 @@ extern "C" int lgd_attn_bwd(const float* q, const float* k, const float* v,
                             float* dq, float* dk, float* dv, int batch,
                             int heads, int nq, int nk, int d, float scale,
                             int device, int smem_limit, void* stream) {
-  if (d != kBuiltD || batch * heads > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch * heads > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || heads == 0 || (nq == 0 && nk == 0)) return 0;
-  const int q_rows = fit_rows(nq), k_rows = fit_rows(nk);
-  const size_t smem = bwd_smem(d, q_rows, k_rows);
-  if (smem > static_cast<size_t>(smem_limit))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const void* kernel = reinterpret_cast<const void*>(attn_bwd_kernel<kBuiltD>);
-  int err = allow_smem(kernel, bwd_ready, device, smem_limit);
-  if (err != 0) return err;
-  const dim3 grid((nq + q_rows - 1) / q_rows + (nk + k_rows - 1) / k_rows,
-                  batch * heads);
-  const int threads = 32 * warps_for(q_rows > k_rows ? q_rows : k_rows);
-  attn_bwd_kernel<kBuiltD><<<grid, threads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, key_valid, o, m, s, g, dq, dk, dv, heads, nq, nk, q_rows,
-      k_rows, scale);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define LGD_ATTN_BWD(D)                                                   \
+  case D:                                                                 \
+    return launch_bwd<D>(q, k, v, key_valid, o, m, s, g, dq, dk, dv,     \
+                         batch, heads, nq, nk, scale, device, smem_limit, \
+                         st);
+  switch (d) {
+    LGD_ATTN_BWD(8)
+    LGD_ATTN_BWD(16)
+    LGD_ATTN_BWD(32)
+    LGD_ATTN_BWD(64)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef LGD_ATTN_BWD
 }

@@ -20,14 +20,45 @@
 //     and the bilinear fractions), then loops over the channels: four
 //     corner reads and one column write each. A warp's writes are one
 //     contiguous row of 32 columns; its reads hit neighbouring texels.
-//   deform_bwd_kernel: the same walk over the columns' gradient. It adds
-//     each valid corner's share to a zeroed float32 copy of x with float32
-//     atomics (the caller casts it once); the warp's 32 threads add to 32
-//     neighbouring texels of one channel, distinct addresses unless two
-//     offsets put their corners on one texel. Each thread keeps the sums
-//     over the channels of its offset's and mask's gradients in registers
-//     and writes them once (no reduction across threads), and writes the
-//     columns again for the weight's gradient (the forward keeps none).
+//   deform_bwd_kernel: the same walk over the columns' gradient, by tiles.
+//     A block takes kTileH x kTileW output positions of one image (a
+//     thread each) and a group of channels, kMaxStage or fewer at a time.
+//     For each stage it copies the tile's input window into shared memory
+//     (the footprint of the unmoved taps, widened by kHalo texels on every
+//     side; zeros outside the image) and keeps an accumulator of the same
+//     window there. A sample whose four corners lie in the window reads
+//     them there and adds each corner's share to the accumulator with
+//     shared-memory atomics; any other sample (a large offset, or one
+//     leaving the tile's footprint) reads x and adds its valid corners'
+//     shares to dx with global float atomics. After each stage the window
+//     is added to dx, a zeroed float32 copy of x (the caller casts it
+//     once), cell by cell with coalesced global atomics, in the image
+//     only: neighbouring tiles overlap only in their halos. Each thread
+//     sums its offset's and mask's gradients over a stage's channels in
+//     registers and adds them to its own slots in shared memory; a block
+//     writes them once, or adds them atomically where several blocks
+//     split the channels. It writes the columns again for the weight's
+//     gradient (the forward keeps none).
+//
+//     The accumulator is fixed point. A float atomicAdd on shared memory
+//     is a compare-and-swap loop on sm_90 (ATOMS.CAST.SPIN in the SASS)
+//     and took about half of the kernel's time; an integer one is native.
+//     Once per block the kernel counts the (sample, corner) pairs that
+//     each window cell takes, and per stage it takes the largest |gradient
+//     x mask|: their product bounds every cell's sum, so with a scale of
+//     2^(30 - e), 2^e above that bound, every sum fits an int, and each
+//     share is rounded to 2^(e - 30), under 2^-29 of the bound. A stage
+//     whose bound is not finite (a share of NaN or inf among them) or
+//     under 2^-96 keeps float atomics.
+//
+// What bounds the backward on this card: each sample's serial work at the
+// occupancy that the windows' shared memory leaves, then the shared
+// atomics. Test builds (PERF.md) with a counting sort of the samples by
+// cell and a gather in place of the atomics, with the tap sums in
+// registers, with hand-interleaved compare-and-swap loops, and with other
+// tiles and stages were all slower. The global atomics per sample and
+// channel fall from 4 to about 0.3 (the window's cells per tile position
+// over 9 taps, and the rare samples that leave the window).
 //
 // Arithmetic: each sample is computed in float32 as
 //   g00 * (1 - wy) * (1 - wx) + g01 * (1 - wy) * wx
@@ -46,6 +77,12 @@
 namespace {
 
 constexpr int kThreads = 256;
+// the backward's tiles: output rows x columns of a block, a thread each
+constexpr int kTileH = 8, kTileW = 16, kTileThreads = kTileH * kTileW;
+constexpr int kHalo = 2;       // window texels past the unmoved taps' reach
+constexpr int kMaxStage = 4;   // channels staged at a time (the fastest)
+constexpr int kStaticSmem = 48 * 1024;  // no opt-in needed
+constexpr int kTargetBlocks = 2048;     // enough blocks to balance 132 SMs
 
 struct Geometry {
   int B, C, H, W, Ho, Wo, kh, kw, stride, pad, dilation;
@@ -64,11 +101,19 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// One tap's sample: the four corners' flat texel indices (-1 where the
-// corner lies outside the image), the bilinear fractions and the mask.
+// One tap's sample: its floor corner (y0, x0), the bilinear fractions
+// and the mask.
+struct Sample {
+  float y0, x0;
+  float a, ay, bx, ax;  // 1 - wy, wy, 1 - wx, wx
+  float m;
+};
+
+// A sample with its four corners' flat texel indices (-1 where the corner
+// lies outside the image).
 struct Tap {
   int i00, i01, i10, i11;
-  float a, ay, bx, ax;  // 1 - wy, wy, 1 - wx, wx
+  float a, ay, bx, ax;
   float m;
 };
 
@@ -78,35 +123,50 @@ __device__ __forceinline__ int texel(float yc, float xc, int H, int W) {
   return valid ? static_cast<int>(yc) * W + static_cast<int>(xc) : -1;
 }
 
-__device__ __forceinline__ Tap tap_at(const Geometry& g,
-                                      const float* __restrict__ offsets,
-                                      const float* __restrict__ mask, int b,
-                                      int k, int64_t p) {
+// tap (ky, kx) of output position (ho, wo) of image b
+__device__ __forceinline__ Sample sample_at(
+    const Geometry& g, const float* __restrict__ offsets,
+    const float* __restrict__ mask, int b, int ky, int kx, int ho, int wo) {
   const int64_t P = static_cast<int64_t>(g.Ho) * g.Wo;
+  const int64_t p = static_cast<int64_t>(ho) * g.Wo + wo;
   const int K = g.kh * g.kw;
-  const int ho = static_cast<int>(p / g.Wo);
-  const int wo = static_cast<int>(p % g.Wo);
-  const int ky = k / g.kw, kx = k % g.kw;
+  const int k = ky * g.kw + kx;
   const float* off = offsets + (static_cast<int64_t>(b) * 2 * K + 2 * k) * P;
   const float py =
       static_cast<float>(ho * g.stride - g.pad + ky * g.dilation) + off[p];
   const float px =
       static_cast<float>(wo * g.stride - g.pad + kx * g.dilation) + off[P + p];
-  const float y0 = floorf(py);
-  const float x0 = floorf(px);
-  const float wy = py - y0;
-  const float wx = px - x0;
-  Tap t;
-  t.i00 = texel(y0, x0, g.H, g.W);
-  t.i01 = texel(y0, x0 + 1.0f, g.H, g.W);
-  t.i10 = texel(y0 + 1.0f, x0, g.H, g.W);
-  t.i11 = texel(y0 + 1.0f, x0 + 1.0f, g.H, g.W);
-  t.a = 1.0f - wy;
-  t.ay = wy;
-  t.bx = 1.0f - wx;
-  t.ax = wx;
-  t.m = mask != nullptr ? mask[(static_cast<int64_t>(b) * K + k) * P + p]
+  Sample s;
+  s.y0 = floorf(py);
+  s.x0 = floorf(px);
+  const float wy = py - s.y0;
+  const float wx = px - s.x0;
+  s.a = 1.0f - wy;
+  s.ay = wy;
+  s.bx = 1.0f - wx;
+  s.ax = wx;
+  s.m = mask != nullptr ? mask[(static_cast<int64_t>(b) * K + k) * P + p]
                         : 1.0f;
+  return s;
+}
+
+__device__ __forceinline__ Tap tap_at(const Geometry& g,
+                                      const float* __restrict__ offsets,
+                                      const float* __restrict__ mask, int b,
+                                      int k, int64_t p) {
+  const Sample s = sample_at(g, offsets, mask, b, k / g.kw, k % g.kw,
+                             static_cast<int>(p / g.Wo),
+                             static_cast<int>(p % g.Wo));
+  Tap t;
+  t.i00 = texel(s.y0, s.x0, g.H, g.W);
+  t.i01 = texel(s.y0, s.x0 + 1.0f, g.H, g.W);
+  t.i10 = texel(s.y0 + 1.0f, s.x0, g.H, g.W);
+  t.i11 = texel(s.y0 + 1.0f, s.x0 + 1.0f, g.H, g.W);
+  t.a = s.a;
+  t.ay = s.ay;
+  t.bx = s.bx;
+  t.ax = s.ax;
+  t.m = s.m;
   return t;
 }
 
@@ -149,60 +209,248 @@ __global__ void deform_fwd_kernel(const T* __restrict__ x,
   }
 }
 
+// The backward's tiles along Wo, the rows and columns of a tile's window,
+// and the channels per stage and per block.
+struct Window {
+  int tiles_w;  // tiles along Wo
+  int h, w;     // rows and columns of a tile's window
+  int stage;    // channels staged at a time (shared memory)
+  int group;    // channels per block, a multiple of stage
+};
+
+// Rows (or columns) of a tile's window: the corners y0 and y0 + 1 of the
+// tile's unmoved taps span (tile - 1) * stride + dilation * (k - 1) + 2
+// rows; kHalo more on each side hold the samples that move by up to kHalo.
+__host__ __device__ inline int window_span(int tile, int stride, int k,
+                                           int dilation) {
+  return (tile - 1) * stride + dilation * (k - 1) + 2 * kHalo + 2;
+}
+
 template <typename T>
-__global__ void deform_bwd_kernel(const T* __restrict__ grad,
-                                  const T* __restrict__ x,
-                                  const float* __restrict__ offsets,
-                                  const float* __restrict__ mask, Geometry g,
-                                  float* __restrict__ dx,
-                                  float* __restrict__ doffsets,
-                                  float* __restrict__ dmask,
-                                  T* __restrict__ cols) {
+__global__ void __launch_bounds__(kTileThreads)
+deform_bwd_kernel(const T* __restrict__ grad, const T* __restrict__ x,
+                  const float* __restrict__ offsets,
+                  const float* __restrict__ mask, Geometry g, Window win,
+                  float* __restrict__ dx, float* __restrict__ doffsets,
+                  float* __restrict__ dmask, T* __restrict__ cols) {
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x;
   const int K = g.kh * g.kw;
+  const int plane = win.h * win.w;
+  float* xs = smem;                        // stage x plane: x's window
+  float* acc = xs + win.stage * plane;     // stage x plane: dx's window
+  float* sums = acc + win.stage * plane;   // 3K x threads: each thread's
+                                           // dy, dx, dm sums per tap
+  const int ty = blockIdx.x / win.tiles_w, tx = blockIdx.x % win.tiles_w;
+  const int b = blockIdx.z;
+  const int c_begin = blockIdx.y * win.group;
+  const int c_end = min(g.C, c_begin + win.group);
+  const int ho = ty * kTileH + tid / kTileW;
+  const int wo = tx * kTileW + tid % kTileW;
+  const bool live = ho < g.Ho && wo < g.Wo;
+  const int wy0 = ty * kTileH * g.stride - g.pad - kHalo;
+  const int wx0 = tx * kTileW * g.stride - g.pad - kHalo;
+  const float wy0f = static_cast<float>(wy0), wx0f = static_cast<float>(wx0);
+  const float last_y = static_cast<float>(win.h - 2);
+  const float last_x = static_cast<float>(win.w - 2);
   const int64_t P = static_cast<int64_t>(g.Ho) * g.Wo;
+  const int64_t KP = K * P;  // channel stride of the columns
   const int64_t HW = static_cast<int64_t>(g.H) * g.W;
-  const int64_t total = static_cast<int64_t>(g.B) * K * P;
+  const int64_t p = live ? static_cast<int64_t>(ho) * g.Wo + wo : 0;
   const bool modulated = mask != nullptr;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                   threadIdx.x;
-       i < total; i += static_cast<int64_t>(blockDim.x) * gridDim.x) {
-    const int64_t p = i % P;
-    const int k = static_cast<int>((i / P) % K);
-    const int b = static_cast<int>(i / (P * K));
-    const Tap t = tap_at(g, offsets, mask, b, k, p);
-    const int64_t plane = static_cast<int64_t>(b) * g.C * HW;
-    const int64_t col0 = (static_cast<int64_t>(b) * g.C * K + k) * P + p;
-    float sum_dy = 0.0f, sum_dx = 0.0f, sum_dm = 0.0f;
-#pragma unroll 2
-    for (int c = 0; c < g.C; ++c) {
-      const T* xc = x + plane + c * HW;
-      float* dxc = dx + plane + c * HW;
-      const float v00 = corner(xc, t.i00);
-      const float v01 = corner(xc, t.i01);
-      const float v10 = corner(xc, t.i10);
-      const float v11 = corner(xc, t.i11);
-      const float val = v00 * t.a * t.bx + v01 * t.a * t.ax +
-                        v10 * t.ay * t.bx + v11 * t.ay * t.ax;
-      cols[col0 + c * K * P] = from_float<T>(modulated ? val * t.m : val);
-      const float gc = to_float(grad[col0 + c * K * P]);
-      const float gm = modulated ? gc * t.m : gc;
-      if (gm != 0.0f) {
-        // each corner's share, as autograd of the plain version forms it
-        const float s00 = gm * t.bx * t.a, s01 = gm * t.ax * t.a;
-        const float s10 = gm * t.bx * t.ay, s11 = gm * t.ax * t.ay;
-        if (t.i00 >= 0 && s00 != 0.0f) atomicAdd(dxc + t.i00, s00);
-        if (t.i01 >= 0 && s01 != 0.0f) atomicAdd(dxc + t.i01, s01);
-        if (t.i10 >= 0 && s10 != 0.0f) atomicAdd(dxc + t.i10, s10);
-        if (t.i11 >= 0 && s11 != 0.0f) atomicAdd(dxc + t.i11, s11);
-      }
-      sum_dy += gm * t.bx * (v10 - v00) + gm * t.ax * (v11 - v01);
-      sum_dx += gm * t.a * (v01 - v00) + gm * t.ay * (v11 - v10);
-      sum_dm += gc * val;
+  int* iacc = reinterpret_cast<int*>(acc);  // the window in fixed point
+  __shared__ int most_hits;
+  __shared__ unsigned most_share[2];  // per stage parity, as float bits
+  for (int i = tid; i < win.stage * plane; i += kTileThreads) acc[i] = 0.0f;
+  for (int j = 0; j < 3 * K; ++j) sums[j * kTileThreads + tid] = 0.0f;
+  if (tid == 0) {
+    most_hits = 0;
+    most_share[0] = most_share[1] = 0u;
+  }
+  __syncthreads();
+  // Once per block: the (sample, corner) pairs that each window cell
+  // takes; the most that any cell takes, times a stage's largest share,
+  // bounds every cell's sum.
+  for (int k = 0; live && k < K; ++k) {
+    const Sample sm = sample_at(g, offsets, mask, b, k / g.kw, k % g.kw, ho,
+                                wo);
+    const float ly = sm.y0 - wy0f, lx = sm.x0 - wx0f;
+    if (ly >= 0.0f && ly <= last_y && lx >= 0.0f && lx <= last_x) {
+      const int l00 = static_cast<int>(ly) * win.w + static_cast<int>(lx);
+      atomicAdd(iacc + l00, 1);
+      atomicAdd(iacc + l00 + 1, 1);
+      atomicAdd(iacc + l00 + win.w, 1);
+      atomicAdd(iacc + l00 + win.w + 1, 1);
     }
-    float* doff = doffsets + (static_cast<int64_t>(b) * 2 * K + 2 * k) * P;
-    doff[p] = sum_dy;
-    doff[P + p] = sum_dx;
-    if (modulated) dmask[(static_cast<int64_t>(b) * K + k) * P + p] = sum_dm;
+  }
+  __syncthreads();
+  {
+    int most = 0;
+    for (int r = tid; r < plane; r += kTileThreads) {
+      most = max(most, iacc[r]);
+      iacc[r] = 0;
+    }
+    atomicMax(&most_hits, most);
+  }
+
+  for (int c0 = c_begin, stage = 0; c0 < c_end; c0 += win.stage, ++stage) {
+    const int n = min(win.stage, c_end - c0);
+    const int64_t first = static_cast<int64_t>(b) * g.C + c0;
+    const T* xb = x + first * HW;
+    // the stage's largest |gradient x mask|, which bounds every share;
+    // +inf where one is not finite (NaN, inf, 0 x inf), so that the stage
+    // adds in float32 and a NaN or an inf reaches dx as in the plain
+    // version (fmaxf alone would drop a NaN)
+    {
+      float most = 0.0f;
+      for (int k = 0; live && k < K && most != INFINITY; ++k) {
+        const int64_t col0 = (first * K + k) * P + p;
+        const float m =
+            modulated ? mask[(static_cast<int64_t>(b) * K + k) * P + p] : 1.0f;
+        for (int c = 0; c < n; ++c) {
+          const float share = fabsf(to_float(grad[col0 + c * KP]) * m);
+          most = isfinite(share) ? fmaxf(most, share) : INFINITY;
+        }
+      }
+      // non-negative floats order as their bits, +inf above every other
+      atomicMax(most_share + (stage & 1), __float_as_uint(most));
+      if (tid == 0) most_share[(stage + 1) & 1] = 0u;  // read a stage ago
+    }
+    // a cell per thread, the stage's channels each
+    for (int r = tid; r < plane; r += kTileThreads) {
+      const int ry = r / win.w;
+      const int y = wy0 + ry, xx = wx0 + r - ry * win.w;
+      const bool in = y >= 0 && y < g.H && xx >= 0 && xx < g.W;
+      const T* xr = xb + (in ? static_cast<int64_t>(y) * g.W + xx : 0);
+#pragma unroll
+      for (int c = 0; c < kMaxStage; ++c)
+        if (c < n) xs[c * plane + r] = in ? to_float(xr[c * HW]) : 0.0f;
+    }
+    __syncthreads();  // x staged, the bounds taken; the last stage flushed
+    // the stage's fixed point: 2^e above the bound, ints of 2^(e - 30)
+    const float bound =
+        static_cast<float>(most_hits) * __uint_as_float(most_share[stage & 1]);
+    int e = 0;
+    frexpf(bound, &e);
+    const bool fixed = isfinite(bound) && e >= -96;
+    const float scale = fixed ? ldexpf(1.0f, 30 - e) : 1.0f;
+    const float unscale = fixed ? ldexpf(1.0f, e - 30) : 1.0f;
+    for (int k = 0; live && k < K; ++k) {
+      const int ky = k / g.kw, kx = k - ky * g.kw;
+      const Sample sm = sample_at(g, offsets, mask, b, ky, kx, ho, wo);
+      const float ly = sm.y0 - wy0f, lx = sm.x0 - wx0f;
+      // both corners of both axes in the window (false for NaN)
+      const bool inside = ly >= 0.0f && ly <= last_y && lx >= 0.0f &&
+                          lx <= last_x;
+      const int l00 =
+          inside ? static_cast<int>(ly) * win.w + static_cast<int>(lx) : 0;
+      int i00 = -1, i01 = -1, i10 = -1, i11 = -1;
+      if (!inside) {
+        i00 = texel(sm.y0, sm.x0, g.H, g.W);
+        i01 = texel(sm.y0, sm.x0 + 1.0f, g.H, g.W);
+        i10 = texel(sm.y0 + 1.0f, sm.x0, g.H, g.W);
+        i11 = texel(sm.y0 + 1.0f, sm.x0 + 1.0f, g.H, g.W);
+      }
+      float sum_dy = 0.0f, sum_dx = 0.0f, sum_dm = 0.0f;
+      const int64_t col0 = (first * K + k) * P + p;
+      // the stage's gradients first, all loads in flight together
+      float gv[kMaxStage];
+#pragma unroll
+      for (int c = 0; c < kMaxStage; ++c)
+        gv[c] = c < n ? to_float(grad[col0 + c * KP]) : 0.0f;
+#pragma unroll
+      for (int c = 0; c < kMaxStage; ++c) {
+        if (c >= n) break;
+        const int64_t col = col0 + c * KP;
+        float v00, v01, v10, v11;
+        if (inside) {
+          const float* xw = xs + c * plane + l00;
+          v00 = xw[0];
+          v01 = xw[1];
+          v10 = xw[win.w];
+          v11 = xw[win.w + 1];
+        } else {
+          const T* xc = xb + c * HW;
+          v00 = corner(xc, i00);
+          v01 = corner(xc, i01);
+          v10 = corner(xc, i10);
+          v11 = corner(xc, i11);
+        }
+        const float val = v00 * sm.a * sm.bx + v01 * sm.a * sm.ax +
+                          v10 * sm.ay * sm.bx + v11 * sm.ay * sm.ax;
+        cols[col] = from_float<T>(modulated ? val * sm.m : val);
+        const float gc = gv[c];
+        const float gm = modulated ? gc * sm.m : gc;
+        if (gm != 0.0f) {
+          // each corner's share, as autograd of the plain version forms it
+          const float s00 = gm * sm.bx * sm.a, s01 = gm * sm.ax * sm.a;
+          const float s10 = gm * sm.bx * sm.ay, s11 = gm * sm.ax * sm.ay;
+          if (inside && fixed) {
+            int* aw = iacc + c * plane + l00;
+            atomicAdd(aw, __float2int_rn(s00 * scale));
+            atomicAdd(aw + 1, __float2int_rn(s01 * scale));
+            atomicAdd(aw + win.w, __float2int_rn(s10 * scale));
+            atomicAdd(aw + win.w + 1, __float2int_rn(s11 * scale));
+          } else if (inside) {
+            float* aw = acc + c * plane + l00;
+            atomicAdd(aw, s00);
+            atomicAdd(aw + 1, s01);
+            atomicAdd(aw + win.w, s10);
+            atomicAdd(aw + win.w + 1, s11);
+          } else {
+            float* dxc = dx + (first + c) * HW;
+            if (i00 >= 0 && s00 != 0.0f) atomicAdd(dxc + i00, s00);
+            if (i01 >= 0 && s01 != 0.0f) atomicAdd(dxc + i01, s01);
+            if (i10 >= 0 && s10 != 0.0f) atomicAdd(dxc + i10, s10);
+            if (i11 >= 0 && s11 != 0.0f) atomicAdd(dxc + i11, s11);
+          }
+        }
+        sum_dy += gm * sm.bx * (v10 - v00) + gm * sm.ax * (v11 - v01);
+        sum_dx += gm * sm.a * (v01 - v00) + gm * sm.ay * (v11 - v10);
+        sum_dm += gc * val;
+      }
+      sums[(3 * k + 0) * kTileThreads + tid] += sum_dy;
+      sums[(3 * k + 1) * kTileThreads + tid] += sum_dx;
+      sums[(3 * k + 2) * kTileThreads + tid] += sum_dm;
+    }
+    __syncthreads();  // every share of this stage is in the window
+    // the window into dx, in the image only, and zeroed for the next stage
+    for (int r = tid; r < plane; r += kTileThreads) {
+      const int ry = r / win.w;
+      const int y = wy0 + ry, xx = wx0 + r - ry * win.w;
+      const bool in = y >= 0 && y < g.H && xx >= 0 && xx < g.W;
+      float* dxr = dx + first * HW + (in ? static_cast<int64_t>(y) * g.W + xx
+                                         : 0);
+#pragma unroll
+      for (int c = 0; c < kMaxStage; ++c) {
+        if (c >= n) break;
+        const int cell = c * plane + r;
+        const float v =
+            fixed ? __int2float_rn(iacc[cell]) * unscale : acc[cell];
+        if (v == 0.0f) continue;
+        iacc[cell] = 0;
+        if (in) atomicAdd(dxr + c * HW, v);
+      }
+    }
+  }
+  if (!live) return;
+  const bool split = gridDim.y > 1;  // other blocks add to the same sums
+  float* doff = doffsets + static_cast<int64_t>(b) * 2 * K * P + p;
+  float* dm = modulated ? dmask + static_cast<int64_t>(b) * K * P + p
+                        : nullptr;
+  for (int k = 0; k < K; ++k) {
+    const float dy = sums[(3 * k + 0) * kTileThreads + tid];
+    const float dxs = sums[(3 * k + 1) * kTileThreads + tid];
+    const float dms = sums[(3 * k + 2) * kTileThreads + tid];
+    if (split) {
+      atomicAdd(doff + 2 * k * P, dy);
+      atomicAdd(doff + (2 * k + 1) * P, dxs);
+      if (modulated) atomicAdd(dm + k * P, dms);
+    } else {
+      doff[2 * k * P] = dy;
+      doff[(2 * k + 1) * P] = dxs;
+      if (modulated) dm[k * P] = dms;
+    }
   }
 }
 
@@ -260,20 +508,53 @@ extern "C" int lgd_deform_sample_bwd(const void* grad, const void* x,
                                      void* cols, void* stream) {
   const Geometry g =
       make_geometry(B, C, H, W, Ho, Wo, kh, kw, stride, pad, dilation);
-  const int64_t total = static_cast<int64_t>(B) * kh * kw * Ho * Wo;
-  if (total == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    deform_bwd_kernel<float><<<grid_for(total), kThreads, 0, s>>>(
-        static_cast<const float*>(grad), static_cast<const float*>(x),
-        offsets, mask, g, dx, doffsets, dmask, static_cast<float*>(cols));
-  } else if (dtype == 1) {
-    deform_bwd_kernel<__nv_bfloat16><<<grid_for(total), kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(grad),
-        static_cast<const __nv_bfloat16*>(x), offsets, mask, g, dx, doffsets,
-        dmask, static_cast<__nv_bfloat16*>(cols));
-  } else {
+  const int K = kh * kw;
+  const int64_t P = static_cast<int64_t>(Ho) * Wo;
+  if (static_cast<int64_t>(B) * K * P == 0 || C == 0) return 0;
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  Window win;
+  win.h = window_span(kTileH, stride, kh, dilation);
+  win.w = window_span(kTileW, stride, kw, dilation);
+  const int64_t plane = static_cast<int64_t>(win.h) * win.w;
+  // the tap sums, then the most channels per stage that fit (beside the
+  // kernel's few static bytes)
+  const int64_t sums = 3LL * K * kTileThreads * sizeof(float);
+  const int64_t fit =
+      (kStaticSmem - 64 - sums) / (2 * plane * sizeof(float));
+  if (fit < 1) return static_cast<int>(cudaErrorInvalidValue);
+  win.stage = static_cast<int>(fit < kMaxStage ? fit : kMaxStage);
+  const int64_t tiles_h = (Ho + kTileH - 1) / kTileH;
+  win.tiles_w = (Wo + kTileW - 1) / kTileW;
+  const int64_t tiles = tiles_h * win.tiles_w;
+  // split the channels among enough blocks to balance the SMs
+  const int64_t stages = (C + win.stage - 1) / win.stage;
+  int64_t groups = (kTargetBlocks + tiles * B - 1) / (tiles * B);
+  groups = groups < 1 ? 1 : groups > stages ? stages : groups;
+  win.group = static_cast<int>((stages + groups - 1) / groups) * win.stage;
+  groups = (C + win.group - 1) / win.group;
+  if (tiles > 0x7fffffff || groups > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (groups > 1) {  // the blocks add their sums into zeros
+    cudaError_t err = cudaMemsetAsync(
+        doffsets, 0, sizeof(float) * B * 2 * K * P, s);
+    if (err == cudaSuccess && mask != nullptr)
+      err = cudaMemsetAsync(dmask, 0, sizeof(float) * B * K * P, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(static_cast<unsigned>(tiles),
+                  static_cast<unsigned>(groups), B);
+  const size_t smem = sizeof(float) * 2 * win.stage * plane + sums;
+  if (dtype == 0) {
+    deform_bwd_kernel<float><<<grid, kTileThreads, smem, s>>>(
+        static_cast<const float*>(grad), static_cast<const float*>(x),
+        offsets, mask, g, win, dx, doffsets, dmask,
+        static_cast<float*>(cols));
+  } else {
+    deform_bwd_kernel<__nv_bfloat16><<<grid, kTileThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(grad),
+        static_cast<const __nv_bfloat16*>(x), offsets, mask, g, win, dx,
+        doffsets, dmask, static_cast<__nv_bfloat16*>(cols));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,8 +7,9 @@ key_valid (B, Nk) bool. On the card it is a ``torch.autograd.Function``
 whose forward is kernel K1a (``attention_fwd``, replacing the Pallas
 ``_pallas_fwd_impl``) and whose backward is kernel K1b (``attention_bwd``,
 replacing ``_pallas_bwd_impl``), both hand-written CUDA in
-``csrc/attention.cu``, built for D = 32 (the teacher's 256 channels over 8
-heads); they run on every teacher attention call (the JAX package's
+``csrc/attention.cu``, built for the head widths D in ``BUILT_D`` (the
+teacher's 256 channels over 8 heads give 32; the mini configs' 64-channel
+FPN gives 8); they run on every teacher attention call (the JAX package's
 short-sequence dispatch to XLA is not ported). On the CPU it is the plain
 version, ``masked_attention_reference``, differentiated by autograd. Any
 other device raises.
@@ -20,7 +21,7 @@ import ctypes
 
 import torch
 
-BUILT_D = 32  # the head width the kernels are built for
+BUILT_D = (8, 16, 32, 64)  # the head widths the kernels are built for
 
 _lib = None
 _smem_limit = {}  # device index -> shared memory a block may opt in to
@@ -92,9 +93,9 @@ def _check(q, k, v, key_valid, saved=()):
     if B * H > 65535:
         raise ValueError(f"attention kernels take at most 65535 (batch, "
                          f"head) pairs, got {B * H}")
-    if D != BUILT_D:
-        raise ValueError(f"attention kernels are built for D = {BUILT_D} "
-                         f"only, got D = {D}")
+    if D not in BUILT_D:
+        raise ValueError(f"attention kernels are built for D in {BUILT_D}, "
+                         f"got D = {D}")
     device = q.device.index
     if device not in _smem_limit:
         _smem_limit[device] = torch.cuda.get_device_properties(

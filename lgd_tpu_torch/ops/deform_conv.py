@@ -16,8 +16,10 @@ that served as its backward):
 - ``deform_sample_fwd`` writes the columns (B, C, K, Ho, Wo) in the
   input's dtype, each sample computed in float32 and rounded once;
 - ``deform_sample_bwd`` takes the columns' gradient and gives the
-  gradients of x (float32 atomics, cast once), of the offsets and of the
-  mask, and recomputes the columns on the way for the weight's gradient.
+  gradients of x (summed per tile of output positions in a fixed-point
+  window in shared memory, then added to a float32 buffer with global
+  atomics and cast once), of the offsets and of the mask, and recomputes
+  the columns on the way for the weight's gradient.
 
 A CUDA tensor always goes to the kernel; a CPU tensor goes to the plain
 version, ``deform_sample_reference`` (the backward: its autograd
@@ -243,10 +245,15 @@ def deform_sample_bwd(grad_cols: torch.Tensor, x: torch.Tensor,
     """Kernel K4, backward, for the columns' gradient ``grad_cols``
     (B, C, K, Ho, Wo) in x's dtype. Returns (dx in x's dtype, doffsets and
     dmask in float32 (dmask None without a mask), the columns recomputed
-    as the forward writes them). dx is summed with float32 atomics into a
-    zeroed float32 buffer and cast once, so the order of its sums changes
-    from run to run; each offset's and mask's gradient is one thread's sum
-    over the channels. For CPU tensors, ``deform_sample_bwd_reference``.
+    as the forward writes them). dx is summed per tile of output
+    positions in a window in shared memory, in fixed point scaled to a
+    bound of the stage's sums (each share rounded under 2^-29 of it), and
+    the windows (and the rare samples that leave them) are added with
+    float32 atomics into a zeroed float32 buffer, cast once; so the order
+    of its sums changes from run to run. Each offset's and mask's gradient
+    is a thread's sum over a block's channels, added across blocks where
+    several split the channels. For CPU tensors,
+    ``deform_sample_bwd_reference``.
     Counts each launch in ``deform_sample_bwd.launches``."""
     if x.device.type == "cpu":
         return deform_sample_bwd_reference(grad_cols, x, offsets, mask,

@@ -280,10 +280,12 @@ def roi_align_bwd(grad: torch.Tensor, index: torch.Tensor,
     """Kernel K3, backward: the gradient of each level for the pooled
     gradient ``grad`` (R, C, out, out), the exact transpose of the forward.
     ``features`` gives the levels' shapes and dtype (their values are not
-    read). The samples' shares are added with float32 atomics into zeroed
-    float32 buffers, cast at the end to the levels' dtype, so the order of
-    the sums changes from run to run. Counts each launch in
-    ``roi_align_bwd.launches``."""
+    read). Per ROI and channel the kernel forms the gradient of the ROI's
+    texel window as Ay^T G Ax (the separable sample weights per bin and
+    texel along each axis, G the pooled gradient) and adds it with float32
+    atomics into zeroed float32 buffers, cast at the end to the levels'
+    dtype; ROIs overlap, so the order of the sums changes from run to run.
+    Counts each launch in ``roi_align_bwd.launches``."""
     lib = _check(features, index, coords, grad)
     if grad.dtype not in _DTYPES:
         raise TypeError(f"ROIAlign backward takes a float32 or bfloat16 "

@@ -53,9 +53,13 @@ def _torch_fwd_bwd(q, k, v, g, valid, scale):
     return out.detach().numpy(), [x.numpy() for x in grads]
 
 
-@pytest.mark.parametrize("N", [2, 33, 64, 101])
-def test_plain_version_and_gradients_match_jax_reference(N):
-    B, H, D = 3, 8, 8
+@pytest.mark.parametrize("N,D", [(2, 8), (33, 8), (64, 8), (101, 8),
+                                 (101, 64)],
+                         ids=["2", "33", "64", "101", "101-D64"])
+def test_plain_version_and_gradients_match_jax_reference(N, D):
+    """At the mini configs' head width (D = 8) and at the widest one the
+    kernels are built for (D = 64)."""
+    B, H = 3, 8
     q, k, v, g, valid = _inputs(N, B, H, N, D)
     scale = 1.0 / D ** 0.5
 

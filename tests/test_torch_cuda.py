@@ -8,11 +8,14 @@ dependencies:
 
 Without a card every test here skips: a CUDA kernel has no CPU mode."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import dcn_inputs, hold_dcn
+from chip_smoke import (DCN_TILE_CASES, check_roi_case, dcn_inputs,
+                        dcn_tile_case, hold_dcn)
 from lgd_tpu_torch.ops import attention, deform_conv, nms, roi_align
 
 
@@ -158,6 +161,46 @@ def test_attention_kernels_at_the_tiles_edges(cuda_device, B, Nq, Nk):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [8, 16, 64])
+@pytest.mark.parametrize("B,Nq,Nk", [(1, 1, 1), (16, 17, 17), (16, 101, 101),
+                                     (16, 101, 37), (2, 257, 257)])
+def test_attention_kernels_at_other_head_widths(cuda_device, D, B, Nq, Nk):
+    """The head widths besides the teacher's 32 that the kernels are built
+    for: 8 (the mini configs' 64-channel FPN over 8 heads), 16 and 64,
+    where a lane sums a share of the tokens of one column (8, 16) or two
+    columns (64); K1b gives the same bits twice."""
+    q, k, v, grad, valid = _attention_inputs(cuda_device, B, Nq, Nk,
+                                             D * 1000 + Nq + Nk, D=D)
+    got = _hold_attention(q, k, v, grad, valid)
+    if B > 1:
+        assert torch.allclose(got[-1], v[-1].mean(dim=1, keepdim=True)
+                              .expand_as(got[-1]), atol=1e-5)
+    scale = 1.0 / D ** 0.5
+    saved = attention.attention_fwd(q, k, v, valid, scale)
+    first = attention.attention_bwd(q, k, v, valid, *saved, grad, scale)
+    second = attention.attention_bwd(q, k, v, valid, *saved, grad, scale)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_rcnn_mini_yaml_trains_a_step_on_the_card(cuda_device, tmp_path):
+    """The in-package R-CNN YAML (a 64-channel FPN: the teacher's heads are
+    8 wide) trains one step on the card (its default device) through the
+    command line and evaluates, with K1a and K1b at D = 8."""
+    from lgd_tpu_torch import train as ttrain
+
+    yaml = os.path.join(os.path.dirname(ttrain.__file__), "configs",
+                        "rcnn_R18_synthetic_mini.yaml")
+    before = attention.attention_fwd.launches, attention.attention_bwd.launches
+    argv = ["--config-file", yaml, "SOLVER.MAX_ITER", "1",
+            "OUTPUT_DIR", str(tmp_path / "out")]
+    res = ttrain.main(ttrain.default_argument_parser().parse_args(argv))
+    assert np.isfinite(res["bbox"]["AP50"])
+    assert attention.attention_fwd.launches > before[0]
+    assert attention.attention_bwd.launches > before[1]
+
+
+@pytest.mark.cuda
 def test_attention_backward_is_the_same_from_run_to_run(cuda_device):
     """K1b writes every element from one lane, without atomics: two runs
     on the same inputs give the same bits."""
@@ -178,9 +221,9 @@ def test_attention_wrapper_rejects_what_it_does_not_take(cuda_device):
         attention.attention_fwd(q, q[:, :1], q, valid, 0.5)
     with pytest.raises(ValueError):
         attention.attention_fwd(q.transpose(2, 3), q, q, valid, 0.5)
-    narrow = torch.zeros((1, 2, 8, 16), device=cuda_device)
-    with pytest.raises(ValueError, match="built for D = 32"):
-        attention.attention_fwd(narrow, narrow, narrow, valid, 0.5)
+    unbuilt = torch.zeros((1, 2, 8, 24), device=cuda_device)
+    with pytest.raises(ValueError, match="built for D in"):
+        attention.attention_fwd(unbuilt, unbuilt, unbuilt, valid, 0.5)
     out, m, s = attention.attention_fwd(q, q, q, valid, 0.5)
     with pytest.raises(ValueError):
         attention.attention_bwd(q, q, q, valid, out, m[..., :4], s, q, 0.5)
@@ -254,6 +297,23 @@ def test_roi_align_kernels_match_plain_version(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("out", [7, 14])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,canvas,n_random", [(2, 16, (800, 1344), 20),
+                                                 (3, 16, (32, 32), 30)])
+def test_roi_align_backward_windows(cuda_device, dtype, B, C, canvas,
+                                    n_random, out):
+    """K3 (chip_smoke's ``check_roi_case``) on the ROIs that probe the
+    backward's windows: the whole canvas (the whole top level, two window
+    tiles wide at 800x1344), a box ending on the bottom-right edge (high
+    corners clamped onto one texel), elongated boxes whose capped bins span
+    several tiles, and at 32x32 one-texel p5 levels; forward and backward
+    within the limits of ``hold_roi``, at the box heads' 7 bins per side
+    and at the config default's 14."""
+    check_roi_case(B, C, canvas, n_random, dtype, cuda_device, out)
+
+
+@pytest.mark.cuda
 def test_roi_align_autograd_counts_one_launch_each_way(cuda_device):
     feats, _, _, _ = _rois(cuda_device, torch.float32, B=2)
     feats = [f.requires_grad_() for f in feats]
@@ -311,6 +371,23 @@ def test_deform_conv_kernels_match_plain_version(cuda_device, dtype, stride,
     assert (deform_conv.deform_sample_fwd.launches,
             deform_conv.deform_sample_bwd.launches) == (before[0] + 1,
                                                         before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DCN_TILE_CASES,
+                         ids=[f"{c[0]}-{c[5]}x{c[6]}".replace(" ", "-")
+                              for c in DCN_TILE_CASES])
+def test_deform_conv_backward_tiles(cuda_device, dtype, case):
+    """K4's backward at the edges of its tiles (chip_smoke's
+    ``DCN_TILE_CASES``): offsets far beyond the windows' halo (the spill
+    path), samples pushed off every border, a mask of zeros, stride 2 with
+    dilation 2, a partial stage of channels, and gradients too small for
+    the fixed-point window (float atomics instead), held by ``hold_dcn``."""
+    kind, B, C, H, W, stride, dilation = case
+    x, off, mask, grad = dcn_tile_case(kind, B, C, H, W, stride, dilation,
+                                       dtype, cuda_device, seed=C + H + W)
+    hold_dcn(x, off, mask, stride, dilation, grad, kind)
 
 
 @pytest.mark.cuda
