@@ -61,7 +61,8 @@
 9. Faster R-CNN R-50 FPN (detectron2's Base-RCNN-FPN at full width) through
    ``do_test``: K2 twice and K3 once per batch, 1..100 finite detections
    per image, COCO metrics; one batch again through ``model.inference``
-   with the plain NMS and ROIAlign swapped in, equal detection sets.
+   with the plain NMS swapped in, equal detection sets, and K3 held
+   against the plain ROIAlign on that batch's own ROIs.
 10. Faster R-CNN LGD training through ``do_train``, checked and timed as in
    5, with K1a/K1b 5, K2 2 and K3 forward and backward 2 each per step;
    then ``do_test(eval_teacher=True)`` and the float32 card-vs-CPU
@@ -71,12 +72,13 @@
    adversarial offsets (integer, fractional, negative, past each border by
    under a texel and by more, exactly -1 and the last row or column,
    beyond +-6 px, +-1e3; masks of 0 and 1, unmodulated, stride 2,
-   dilation 2; for the backward's tiles offsets beyond the windows' halo,
-   samples pushed off every border, a mask of zeros and a partial stage of
-   channels) in float32 and bf16, then at R-101's res3-res5 shapes
-   (batch 16 at 800x1344, bf16, offsets N(0, 1.5) px), held at the same
-   limits and timed beside the plain version and F.grid_sample times the
-   mask (the yardstick; the port never calls it).
+   dilation 2; for both directions' tiles offsets beyond the windows'
+   halos, samples pushed off every border, a mask of zeros, partial stages
+   of channels and runs of positions, maps too wide for the forward's
+   window of full rows) in float32 and bf16, then at R-101's res3-res5
+   shapes (batch 16 at 800x1344, bf16, offsets N(0, 1.5) px), held at
+   the same limits and timed beside the plain version and F.grid_sample
+   times the mask (the yardstick; the port never calls it).
 12. RetinaNet R-101-DCNv2 (modulated DCN in res3-res5) and
    X-101-32x8d-DCNv2 inference through ``do_test`` at batch 8: K2 once and
    K4 30 times per batch (X-101: 3 of them stride 2), finite detections,
@@ -87,9 +89,9 @@
 13. RetinaNet R-101-DCNv2 LGD training through ``do_train``, checked and
    timed as in 5 (gradients clipped by value, ``dcn_train_cfg``), with
    K1a/K1b 5 and K4 forward and backward 30 each per step and the offset
-   convs trained; K4's backward held and timed again on its own inputs
-   of the third step, one per res stage (offsets that vary smoothly over
-   the map, unlike 11's independent draws); then
+   convs trained; K4's forward and backward held and timed again on the
+   backward's inputs of the third step, one per res stage (offsets that
+   vary smoothly over the map, unlike 11's independent draws); then
    ``do_test(eval_teacher=True)``.
 14. The float32 card-vs-CPU ``train_forward`` of 7 for the R-101-DCNv2
    model with the same drawn offset convs.
@@ -118,13 +120,13 @@ ATTN_GRAD_TOL = 1e-4
 # in other orders, after 50 layers of convolutions
 TRAIN_LOSS_TOL = 1e-3
 # K3 against its plain version, relative to the largest value: the float32
-# forward, and bfloat16 levels pooled into float32 (the kernel repeats the
-# plain version's float32 arithmetic); the float32 backward (float32
-# atomics add the shares in an order that changes from run to run).
-# bfloat16 outputs: within one bfloat16 ulp. bfloat16 gradients: within
-# one ulp of the rounding plus the float32 tolerance, since a gradient
-# that sums terms of both signs may differ in float32 by more than an ulp
-# of its small result.
+# forward, and bfloat16 levels pooled into float32 (the kernel sums each
+# bin's samples in another order: along each window row, then down the
+# rows); the float32 backward (float32 atomics add the shares in an order
+# that changes from run to run). bfloat16 outputs and gradients: within
+# one ulp of the rounding plus the float32 tolerance, since a sum of terms
+# of both signs may differ in float32 by more than an ulp of its small
+# result.
 ROI_TOL = 1e-5
 # K4 against its plain version: the float32 forward bit for bit (the kernel
 # repeats the plain version's float32 arithmetic), bfloat16 columns within
@@ -749,7 +751,7 @@ def hold_roi(feats, index, coords, out, grad, what):
     """K3 forward and, given a pooled gradient, backward against the plain
     version on the same inputs. The forward summed in float32 within
     ROI_TOL of the largest value; for bfloat16 levels, also the rounded
-    output within one bf16 ulp. The backward against autograd of the plain
+    output within one bf16 ulp more. The backward against autograd of the plain
     version on float32 copies of the levels (the weights do not depend on
     the values): float32 within ROI_TOL of each level's largest value,
     bfloat16 within one ulp of the rounding plus that. Returns the forward
@@ -762,15 +764,15 @@ def hold_roi(feats, index, coords, out, grad, what):
     want = RA.multilevel_roi_align_reference(feats, index, coords, out,
                                              out_dtype=torch.float32)
     err_f = (got - want).abs().max().item()
-    check(err_f <= ROI_TOL * want.abs().max().item(),
-          f"K3 forward differs ({what}): {err_f}")
+    tol_f = ROI_TOL * want.abs().max().item()
+    check(err_f <= tol_f, f"K3 forward differs ({what}): {err_f}")
     if dtype == torch.bfloat16:  # then rounded once to bf16
         k = RA.roi_align_fwd(feats, index, coords, out)
         p = RA.multilevel_roi_align_reference(feats, index, coords, out)
         check(k.dtype == torch.bfloat16, k.dtype)
         diff = (k.float() - p.float()).abs()
-        check((diff <= bf16_ulp(p)).all(),
-              f"K3 bf16 forward beyond one ulp ({what})")
+        check((diff <= tol_f + bf16_ulp(p)).all(),
+              f"K3 bf16 forward beyond one ulp more ({what})")
         err_f = max(err_f, diff.max().item())
         del k, p, diff
     del want
@@ -971,23 +973,38 @@ def dcn_inputs(B, C, H, W, stride=1, dilation=1, modulated=True,
             torch.from_numpy(off).to(device), mask)
 
 
-# K4 backward's tiles (8 x 16 output positions, an input window 2 texels
-# wider than the unmoved taps' reach, channels staged 4 at a time): cases
-# at their edges, (kind, B, C, H, W, stride, dilation). "spill": offsets
-# of N(0, 6) px, mostly beyond the window's halo; "borders": each image's
+# K4's tiles: the backward's (8 x 16 output positions, an input window 2
+# texels wider than the unmoved taps' reach, channels staged 4 at a time)
+# and the forward's (runs of 256 output positions, a window 3 rows past
+# the taps' reach, at full width where it fits in shared memory, else over
+# the run's own columns; channels staged up to 8 at a time): cases at
+# their edges, (kind, B, C, H, W, stride, dilation). "spill": offsets of
+# N(0, 6) px, mostly beyond the windows' halos; "borders": each image's
 # samples pushed across one border, partly and wholly off the image;
 # "zero mask": every share 0; "plain": the adversarial draw of
-# ``dcn_inputs`` (here stride 2 with dilation 2). 22 and 18 channels
-# leave a partial stage; "tiny gradient": gradients near 1e-33, under
-# the bound the fixed-point window takes, which add in float32 instead;
-# "nan gradient" and "inf gradient": one gradient in 500 NaN, or +-inf
-# (times a zero mask, NaN), which must reach dx where the plain version's
-# do.
+# ``dcn_inputs`` (here stride 2 with dilation 2). 22, 20 and 18 channels
+# leave partial stages, and no case has a whole number of runs; "ragged
+# run": res5's 25 x 42 map (1050 positions, an odd number of pairs past
+# the last whole run); "unmodulated": no mask, samples leaving both
+# windows, stride 2 with dilation 2; "wide": maps too wide for the
+# forward's window of full rows (X-101's stride-2 res3 unit at a 1760 px
+# wide input, a stride-1 map of 600 columns), where each run lies in one
+# output row, and one whose run window is cut to fit (stride 2 with
+# dilation 2), offsets N(0, 3) px; "tiny gradient": gradients near
+# 1e-33, under the bound the fixed-point window takes, which add in
+# float32 instead; "nan gradient" and "inf gradient": one gradient in 500
+# NaN, or +-inf (times a zero mask, NaN), which must reach dx where the
+# plain version's do.
 DCN_TILE_CASES = (("spill", 2, 22, 40, 56, 1, 1),
                   ("spill", 2, 20, 33, 47, 2, 2),
                   ("borders", 4, 16, 35, 50, 1, 1),
                   ("zero mask", 2, 16, 20, 36, 1, 1),
                   ("plain", 2, 18, 37, 45, 2, 2),
+                  ("ragged run", 1, 24, 25, 42, 1, 1),
+                  ("unmodulated", 2, 20, 33, 47, 2, 2),
+                  ("wide", 1, 16, 24, 440, 2, 1),
+                  ("wide", 1, 12, 16, 600, 1, 1),
+                  ("wide", 1, 8, 20, 1100, 2, 2),
                   ("tiny gradient", 2, 16, 20, 36, 1, 1),
                   ("nan gradient", 2, 16, 20, 36, 1, 1),
                   ("inf gradient", 2, 16, 20, 36, 1, 1))
@@ -1000,9 +1017,12 @@ def dcn_tile_case(kind, B, C, H, W, stride, dilation, dtype, device, seed):
 
     from lgd_tpu_torch.ops import deform_conv as D
 
-    x, off, mask = dcn_inputs(B, C, H, W, stride, dilation, True, dtype,
-                              device, seed,
-                              spread={"spill": 6.0, "borders": 1.5}.get(kind))
+    x, off, mask = dcn_inputs(B, C, H, W, stride, dilation,
+                              kind != "unmodulated", dtype, device, seed,
+                              spread={"spill": 6.0, "borders": 1.5,
+                                      "ragged run": 1.5,
+                                      "unmodulated": 6.0,
+                                      "wide": 3.0}.get(kind))
     if kind == "borders":
         # image 0 samples in y from (-3, 0), image 1 from (H - 1, H + 2),
         # images 2 and 3 likewise in x: some corners in, most out
@@ -1180,10 +1200,11 @@ def phase_deform_conv(device, card):
     log(f"K4: {checked} adversarial cases (integer, fractional and "
         f"negative offsets, past each border by under a texel and by more, "
         f"exactly -1 and the last row and column, beyond +-6 px, +-1e3; "
-        f"masks of 0 and 1, unmodulated, stride 2, dilation 2; for the "
-        f"backward's tiles: offsets of N(0, 6) px beyond the windows' "
-        f"halo, samples pushed off every border, a mask of zeros, partial "
-        f"channel stages, gradients near 1e-33) match the plain version "
+        f"masks of 0 and 1, unmodulated, stride 2, dilation 2; for both "
+        f"directions' tiles: offsets of N(0, 6) px beyond the windows' "
+        f"halos, samples pushed off every border, a mask of zeros, partial "
+        f"channel stages, ragged runs, maps too wide for the forward's "
+        f"full rows, gradients near 1e-33) match the plain version "
         f"(max abs err forward {err_f:.3e}, float32 bit for bit; backward "
         f"{err_b:.3e}; tolerance {DCN_TOL} of the largest value, one bf16 "
         f"ulp more)")
@@ -1579,51 +1600,47 @@ def same_det_sets(a, b, i, box_tol=1e-3, score_tol=1e-4):
 
 
 class PlainKernels:
-    """Inside the block the NMS sweep, the ROIAlign forward and the
-    deformable sampling forward are their plain versions: the model's code
-    finds ``nms.greedy_keep_sorted``, ``roi_align.roi_align_fwd`` and
-    ``deform_conv.deform_sample_fwd`` by module attribute when it calls
-    them, so ``model.inference`` itself runs the plain path. Every pool the
-    sweep sees is kept in ``pools``."""
+    """Inside the block the NMS sweep and the deformable sampling forward
+    are their plain versions: the model's code finds
+    ``nms.greedy_keep_sorted`` and ``deform_conv.deform_sample_fwd`` by
+    module attribute when it calls them, so ``model.inference`` itself runs
+    the plain path. Every pool the sweep sees is kept in ``pools``."""
 
     def __enter__(self):
         from lgd_tpu_torch.ops import deform_conv as D
         from lgd_tpu_torch.ops import nms
-        from lgd_tpu_torch.ops import roi_align as RA
 
-        self.saved = (nms.greedy_keep_sorted, RA.roi_align_fwd,
-                      D.deform_sample_fwd)
+        self.saved = (nms.greedy_keep_sorted, D.deform_sample_fwd)
         self.pools = []
 
         def keep(boxes_s, valid_s, thr):
             self.pools.append((boxes_s, valid_s, thr))
             return nms.greedy_keep_sorted_reference(boxes_s, valid_s, thr)
 
-        def pool(features, index, coords, output_size, out_dtype=None):
-            return RA.multilevel_roi_align_reference(
-                features, index, coords, output_size, out_dtype=out_dtype)
-
-        nms.greedy_keep_sorted, RA.roi_align_fwd = keep, pool
+        nms.greedy_keep_sorted = keep
         D.deform_sample_fwd = D.deform_sample_reference
         return self
 
     def __exit__(self, *exc):
         from lgd_tpu_torch.ops import deform_conv as D
         from lgd_tpu_torch.ops import nms
-        from lgd_tpu_torch.ops import roi_align as RA
 
-        (nms.greedy_keep_sorted, RA.roi_align_fwd,
-         D.deform_sample_fwd) = self.saved
+        nms.greedy_keep_sorted, D.deform_sample_fwd = self.saved
 
 
 def phase_rcnn_inference(device, card):
     """Faster R-CNN R-50 FPN inference through do_test, then one batch
-    again through ``model.inference`` with the plain NMS and the plain
-    ROIAlign; K2 on that batch's RPN pool. Returns the path's launches."""
+    again through ``model.inference`` with the plain NMS, equal detection
+    sets, and K3 held against the plain ROIAlign on that batch's own ROIs
+    (K3 sums in another order than the plain version, so one bf16 ulp in
+    a pooled value may reorder the random box head's near-tied
+    detections: the sets with the plain ROIAlign are not compared); K2 on
+    that batch's RPN pool. Returns the path's launches."""
     from lgd_tpu_torch.data import TestLoader, get_dataset_dicts
     from lgd_tpu_torch.engine.trainer import do_test
     from lgd_tpu_torch.models.distillator import build_model
     from lgd_tpu_torch.ops import nms
+    from lgd_tpu_torch.ops import roi_align as RA
 
     cfg = rcnn_cfg()
     model = build_model(cfg, dtype=torch.bfloat16, device=device, seed=0)
@@ -1657,22 +1674,48 @@ def phase_rcnn_inference(device, card):
     sizes = torch.from_numpy(batch["image_size"]).to(device)
     kern = model.inference(images, sizes)
     before = read_launches()
-    with PlainKernels() as plain_run:
-        plain = model.inference(images, sizes)
-    check(read_launches() == before, "the plain run launched a kernel")
+    # the box head's ROIAlign inputs, recorded by an instance attribute
+    # that shadows the ROI heads' ``pool`` method until it is deleted
+    heads = model.student.roi_heads
+    pool, pooled = heads.pool, []
+
+    def recorded_pool(*args):
+        pooled.append(args)
+        return pool(*args)
+
+    heads.pool = recorded_pool
+    try:
+        with PlainKernels() as plain_run:
+            plain = model.inference(images, sizes)
+    finally:
+        del heads.pool
+    check(read_launches() == {**before,
+                              "K3 forward": before["K3 forward"] + 1},
+          "the run with the plain NMS launched another kernel than K3")
     pools = plain_run.pools
     check(len(pools) == 2, f"{len(pools)} NMS pools")
+    check(len(pooled) == 1, f"{len(pooled)} ROIAlign calls")
     worst = [same_det_sets(kern, plain, i) for i in range(images.shape[0])]
     for what, (boxes_s, valid_s, thr) in zip(("RPN", "box head"), pools):
         keep = nms.greedy_keep_sorted(boxes_s, valid_s, thr)
         check(torch.equal(keep, nms.greedy_keep_sorted_reference(
             boxes_s, valid_s, thr)), f"K2 differs on the {what} pool")
+    feats, boxes, valid = pooled[0]
+    out = heads.resolution
+    index, coords = RA.roi_geometry(boxes, valid, heads.strides, out,
+                                    heads.min_level, heads.sampling_ratio)
+    feats = [feats[f].contiguous() for f in heads.in_features]
+    with NoTF32():
+        _, _, err_roi, _ = hold_roi(feats, index, coords, out, None,
+                                    "the R-CNN inference batch's own ROIs")
     log(f"one batch ({tuple(images.shape)}): the kernels and the plain NMS "
-        f"and ROIAlign give equal detection sets (largest differences: box "
+        f"give equal detection sets (largest differences: box "
         f"{max(w[0] for w in worst):.3e} px, score "
         f"{max(w[1] for w in worst):.3e}); K2 bit-equal on the RPN pool "
         f"{tuple(pools[0][0].shape)} and the box head's "
-        f"{tuple(pools[1][0].shape)}")
+        f"{tuple(pools[1][0].shape)}; K3 on the batch's "
+        f"{index.shape[0]} ROIs within its tolerance of the plain version "
+        f"(max abs err {err_roi:.3e})")
     boxes_s, valid_s, thr = pools[0]
     ms = cuda_ms(lambda: nms.greedy_keep_sorted(boxes_s, valid_s, thr), 50)
     plain_ms = cuda_ms(lambda: nms.greedy_keep_sorted_reference(
@@ -2014,8 +2057,8 @@ def phase_dcn_training(device, card):
     and backward 30 each per step, then do_test(eval_teacher=True); K4's
     backward is held and timed again on its own inputs of the third step,
     whose offsets vary smoothly across the map, unlike the independent
-    draws of phase_deform_conv. Returns the launches of the do_train
-    run."""
+    draws of phase_deform_conv; so is its forward, on the same inputs.
+    Returns the launches of the do_train run."""
     from lgd_tpu_torch.ops import deform_conv as D
 
     cfg = dcn_train_cfg()
@@ -2034,17 +2077,21 @@ def phase_dcn_training(device, card):
         stride, dil = inputs[4:]
         Ho, Wo = off.shape[-2:]
         o = off.reshape(-1, 9, 2, Ho, Wo)
-        _, e_b = hold_dcn(x, off, mask, stride, dil, grad,
-                          f"training path's input {shape}")
+        e_f, e_b = hold_dcn(x, off, mask, stride, dil, grad,
+                            f"training path's input {shape}")
+        f_ms = cuda_ms(lambda: D.deform_sample_fwd(x, off, mask, 3, stride,
+                                                   dil), 20, 3)
         ms = cuda_ms(lambda: D.deform_sample_bwd(grad, x, off, mask, 3,
                                                  stride, dil), 10, 2)
+        f_bound, f_by = dcn_bound(x, off, mask, forward=True)
         b_bound, b_by = dcn_bound(x, off, mask, forward=False)
-        log(f"K4 backward on the training path's own input {shape} "
-            f"{x.dtype} (step 2): offsets spread {off.std().item():.3f} px, "
-            f"neighbours' offsets differ by "
-            f"{(o[..., 1:] - o[..., :-1]).std().item():.3f} px; max abs err "
-            f"{e_b:.3e}, kernel {ms:.4f} ms, bound {b_bound:.6f} ms ({b_by}) "
-            f"[{card}]")
+        log(f"K4 on the training path's own input {shape} {x.dtype} (step "
+            f"2): offsets spread {off.std().item():.3f} px, neighbours' "
+            f"offsets differ by "
+            f"{(o[..., 1:] - o[..., :-1]).std().item():.3f} px; forward max "
+            f"abs err {e_f:.3e}, kernel {f_ms:.4f} ms, bound {f_bound:.6f} "
+            f"ms ({f_by}); backward max abs err {e_b:.3e}, kernel {ms:.4f} "
+            f"ms, bound {b_bound:.6f} ms ({b_by}) [{card}]")
     del captured
     torch.cuda.empty_cache()
     phase_eval_teacher(model, cfg, device, card,

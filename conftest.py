@@ -16,18 +16,15 @@ and makes the run last about its time plus everything before it. So:
   one more file at once, and that file would wait behind the long test; a
   worker starts its last pending test only when more arrive or it is told
   to stop;
-- the other workers' main threads yield the CPU to it (niceness 19):
-  beside five busy workers at the same priority it ran so much slower
-  that the run still hit a 1470 s limit. ``os.nice`` changes only the
-  calling thread's niceness, so the thread pools that JAX and PyTorch
-  start at import keep theirs; niceness 19 on every thread slowed the
-  rest of the suite so much that the run hit the limit with fewer tests
-  done.
+- the other workers keep the same priority as that worker. Where the
+  machine is slow enough that the long test alone nearly fills the time
+  limit, it cannot end in time whatever its priority, and the rest of the
+  suite, yielding the CPU to it, did not end either; a run that the limit
+  cuts counts only the tests that ended.
 
 Nothing is skipped, marked or reordered within a file.
 """
 
-import os
 import warnings
 
 import pytest
@@ -74,13 +71,3 @@ def pytest_xdist_make_scheduler(config, log):
             "its worker (written for pytest-xdist 3.8.0)"))
         return None
     return scheduler
-
-
-_yielded = []
-
-
-def pytest_runtest_setup(item):
-    if (os.environ.get("PYTEST_XDIST_WORKER") and not _yielded
-            and not item.nodeid.startswith(LONGEST_FIRST)):
-        os.nice(19)  # once per worker process, its calling thread
-        _yielded.append(True)

@@ -8,12 +8,17 @@
 // geometry (batch index, level, samples per axis, origin, bin sizes) come in
 // from lgd_tpu_torch/ops/roi_align.py::roi_geometry; the kernels never route.
 //
-//   roi_align_fwd_kernel: one thread per output element (roi, channel, bin
-//     row, bin column), as detectron2's ROIAlign_forward_kernel. It walks the
-//     ROI's actual ny x nx samples of its bin (at most s_max x s_max), reads
-//     the four bilinear corners of each from the NCHW level, and sums in
-//     float32; it writes in the output's dtype. An invalid ROI (level -1)
-//     writes zeros.
+//   roi_align_fwd_kernel: the TPU kernel's own form, per ROI the separable
+//     interpolation product Ay F Ax^T. A block takes one ROI and a chunk of
+//     channels. It lists once, in shared memory, the texels that each bin's
+//     samples touch along each axis with their summed weights (bin_texels;
+//     the same sums as the backward's Ay and Ax, from axis_sample), then a
+//     thread per bin and kFwdWays channels, neighbouring threads on
+//     neighbouring bins, sums over the bin's rows the weighted sum of the
+//     bin's columns: every texel the bin's samples touch is read once per
+//     channel, in the level's layout, and the bin's lists once for all its
+//     channels. It writes in the output's dtype; the chunk's output is one
+//     run. An invalid ROI (level -1) writes zeros.
 //   roi_align_bwd_kernel: the transpose, in the TPU kernel's own form: per
 //     ROI a texel window of its level and an interpolation product. A
 //     sample's weight is separable, wy * wx (axis_sample folds the 1 / n
@@ -40,17 +45,27 @@
 //
 // The sample positions and weights repeat the plain version's float32
 // arithmetic operation for operation (build flag -fmad=false: no fused
-// multiply-add; IEEE divisions), so the forward agrees with it bit for bit
-// in float32.
+// multiply-add; IEEE divisions). The forward then sums the weighted texels
+// in another order than the plain version (each bin's columns, then its
+// rows, with fused multiply-adds), so its float32 result agrees with the
+// plain version's within float32 rounding, not bit for bit.
 //
-// What bounds the forward on this card: neither bandwidth nor arithmetic.
-// Each output element does up to 16 samples x 4 scattered reads that mostly
-// hit L2 (neighbouring threads read neighbouring columns of one channel, so
-// a warp's reads coalesce only partly). A channels-last layout with
-// shared-memory staging of each ROI's window is later work. The backward
-// before this form gave each (ROI, channel, bin) a thread and added every
-// corner's share with a global atomic: a warp's 32 neighbouring bins
-// collided on shared texels and the atomics serialised. This one is bound
+// What bounds the forward on this card (PERF.md): the old form gave
+// each output element a thread that recomputed every sample's position
+// (two IEEE divisions each) and read its four corners, so each texel was
+// read again for every sample that touches it (3.28 ms at 16 x 512 ROIs,
+// 14.5 times the bound). Staging each ROI's window in shared memory a
+// tile of channels at a time, as the TPU kernel does, was slower in test
+// builds (10.7 ms): with half the ROIs over several 32 x 32 tiles, the
+// per-step barriers, index arithmetic and list rebuilding took more than
+// the loads they saved. This form has one barrier per block; a thread's
+// four channels share each list entry it loads. It is bound by the
+// corner loads through L1 (each warp's loads fall on several rows of a
+// level), at about five times the bound.
+//
+// The backward before this form gave each (ROI, channel, bin) a thread and
+// added every corner's share with a global atomic: a warp's 32
+// neighbouring bins collided on shared texels and the atomics serialised. This one is bound
 // by its global atomics, one per window texel and channel (a test build
 // without them ran in well under half the time), added at about the
 // card's rate for coalesced float atomics; float2 and float4 atomics add
@@ -66,8 +81,12 @@ constexpr int kMaxLevels = 8;
 constexpr int kThreads = 256;
 constexpr int kWinTile = 32;       // rows and columns of a window tile
 constexpr int kMaxChannels = 64;   // channels of a backward block
-constexpr int kMaxOut = 16;        // bins per side the backward takes
+constexpr int kMaxOut = 16;        // bins per side the kernels take
 constexpr int kStaticSmem = 48 * 1024;  // no opt-in needed
+constexpr int kFwdChunk = 64;      // channels of a forward block
+constexpr int kFwdWays = 4;        // channels of a forward thread
+constexpr int kMaxTexels = 32;     // texels a bin touches along an axis
+constexpr int kListPitch = kMaxTexels + 1;  // a bin's list, in words
 
 template <typename T>
 struct Levels {
@@ -136,41 +155,153 @@ __device__ __forceinline__ Roi load_roi(const int* index, const float* coords,
   return roi;
 }
 
-template <typename Tin, typename Tout>
-__global__ void roi_align_fwd_kernel(Levels<const Tin> levels,
-                                     const int* __restrict__ index,
-                                     const float* __restrict__ coords,
-                                     int64_t total, int channels, int out,
-                                     Tout* __restrict__ y) {
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                   threadIdx.x;
-       i < total; i += static_cast<int64_t>(blockDim.x) * gridDim.x) {
-    const int pw = static_cast<int>(i % out);
-    const int ph = static_cast<int>((i / out) % out);
-    const int c = static_cast<int>((i / (out * out)) % channels);
-    const int64_t r = i / (static_cast<int64_t>(out) * out * channels);
-    const Roi roi = load_roi(index, coords, r);
-    float acc = 0.0f;
-    if (roi.level >= 0) {
-      const int H = levels.h[roi.level];
-      const int W = levels.w[roi.level];
-      const Tin* f = levels.ptr[roi.level] +
-                     (static_cast<int64_t>(roi.b) * channels + c) * H * W;
-      for (int iy = 0; iy < roi.ny; ++iy) {
-        const Axis ay = axis_sample(roi.y0, roi.bin_h, ph, iy, roi.ny, H);
-        for (int ix = 0; ix < roi.nx; ++ix) {
-          const Axis ax = axis_sample(roi.x0, roi.bin_w, pw, ix, roi.nx, W);
-          const float v00 = to_float(f[ay.c0 * W + ax.c0]);
-          const float v01 = to_float(f[ay.c0 * W + ax.c1]);
-          const float v10 = to_float(f[ay.c1 * W + ax.c0]);
-          const float v11 = to_float(f[ay.c1 * W + ax.c1]);
-          const float v = v00 * (ay.w0 * ax.w0) + v01 * (ay.w0 * ax.w1) +
-                          v10 * (ay.w1 * ax.w0) + v11 * (ay.w1 * ax.w1);
-          acc = acc + v;
-        }
+// The texels that bin p's samples touch along one axis, each once, in ts
+// with its summed weight in ws: each sample's corners in order, both on
+// one texel where the high corner is clamped, summed as bin_weight sums
+// them. A sample outside [-1, size] keeps its corners with weight 0, as
+// the plain version multiplies them too. At most 2n texels (kMaxTexels:
+// roi_geometry takes at most kMaxTexels / 2 samples per axis); returns
+// the count.
+__device__ __forceinline__ int bin_texels(float start, float bin, int p,
+                                          int n, int size, int* ts,
+                                          float* ws) {
+  int count = 0;
+  for (int i = 0; i < n; ++i) {
+    const Axis a = axis_sample(start, bin, p, i, n, size);
+    for (int corner = 0; corner < 2; ++corner) {
+      const int t = corner ? a.c1 : a.c0;
+      int e = 0;
+      while (e < count && ts[e] != t) ++e;
+      if (e == count) {
+        if (count == kMaxTexels) return count;  // beyond what the caller
+        ts[count] = t;                          // may ask
+        ws[count++] = 0.0f;
       }
+      ws[e] += corner ? a.w1 : a.w0;
     }
-    y[i] = from_float<Tout>(acc);
+  }
+  return count;
+}
+
+// A ROI's texel window on its level: the first sample's low corner to the
+// last one's high corner (the positions grow with the bin and the sample).
+struct Window {
+  int y_lo, y_hi, x_lo, x_hi;
+};
+
+__device__ __forceinline__ Window roi_window(const Roi& roi, int out, int H,
+                                             int W) {
+  Window w;
+  w.y_lo = axis_sample(roi.y0, roi.bin_h, 0, 0, roi.ny, H).c0;
+  w.y_hi = axis_sample(roi.y0, roi.bin_h, out - 1, roi.ny - 1, roi.ny, H).c1;
+  w.x_lo = axis_sample(roi.x0, roi.bin_w, 0, 0, roi.nx, W).c0;
+  w.x_hi = axis_sample(roi.x0, roi.bin_w, out - 1, roi.nx - 1, roi.nx, W).c1;
+  return w;
+}
+
+// The level of a ROI, without indexing the kernel's parameters at run time
+// (which copies them to local memory in every thread).
+template <typename T>
+__device__ __forceinline__ void pick_level(const Levels<T>& lv, int level,
+                                           T*& ptr, int& h, int& w) {
+#pragma unroll
+  for (int l = 0; l < kMaxLevels; ++l) {
+    if (l == level) {
+      ptr = lv.ptr[l];
+      h = lv.h[l];
+      w = lv.w[l];
+    }
+  }
+}
+
+// The bins per side, out, at run time up to kMaxOut. A block takes one ROI
+// and kFwdChunk channels: it lists each bin's texels and weights along
+// each axis once, then a thread per bin and kFwdWays channels,
+// neighbouring threads on neighbouring bins, sums the bin's rows, each the
+// sum of the bin's columns: Ay F Ax^T restricted to the bin, every texel
+// the bin's samples touch read once per channel.
+template <typename Tin, typename Tout>
+__global__ void __launch_bounds__(kThreads)
+roi_align_fwd_kernel(Levels<const Tin> levels, const int* __restrict__ index,
+                     const float* __restrict__ coords, int channels, int out,
+                     Tout* __restrict__ y) {
+  __shared__ int ry[kMaxOut * kListPitch], rx[kMaxOut * kListPitch];
+  __shared__ float wy[kMaxOut * kListPitch], wx[kMaxOut * kListPitch];
+  __shared__ int ny[kMaxOut], nx[kMaxOut];
+  const int tid = threadIdx.x;
+  const int64_t r = blockIdx.x;
+  const Roi roi = load_roi(index, coords, r);
+  const int c_begin = blockIdx.y * kFwdChunk;
+  const int chunk = min(kFwdChunk, channels - c_begin);
+  const int oo = out * out;
+  Tout* yr = y + (r * channels + c_begin) * oo;  // the chunk: one run
+  if (roi.level < 0) {
+    for (int i = tid; i < chunk * oo; i += kThreads)
+      yr[i] = from_float<Tout>(0.0f);
+    return;
+  }
+  const Tin* level = nullptr;
+  int H = 0, W = 0;
+  pick_level(levels, roi.level, level, H, W);
+  const int64_t HW = static_cast<int64_t>(H) * W;
+  const Tin* f = level + (static_cast<int64_t>(roi.b) * channels + c_begin) *
+                             HW;
+  if (tid < out)
+    ny[tid] = bin_texels(roi.y0, roi.bin_h, tid, roi.ny, H,
+                         ry + tid * kListPitch, wy + tid * kListPitch);
+  else if (tid < 2 * out)
+    nx[tid - out] = bin_texels(roi.x0, roi.bin_w, tid - out, roi.nx, W,
+                               rx + (tid - out) * kListPitch,
+                               wx + (tid - out) * kListPitch);
+  __syncthreads();
+  // a thread per bin (ph, pw) of kFwdWays channels c, c + part, ...: value
+  // i = (c * out + ph) * out + pw for c under part; the next kThreads on
+  const int part = (chunk + kFwdWays - 1) / kFwdWays;
+  int c = tid / oo, ph = tid % oo / out, pw = tid % out;
+  const int dc = kThreads / oo, dph = kThreads % oo / out,
+            dpw = kThreads % out;
+  for (int i = tid; i < part * oo; i += kThreads) {
+    const Tin* fc[kFwdWays];
+#pragma unroll
+    for (int j = 0; j < kFwdWays; ++j)
+      fc[j] = f + min(c + j * part, chunk - 1) * HW;
+    const int* rxp = rx + pw * kListPitch;
+    const float* wxp = wx + pw * kListPitch;
+    const int mx = nx[pw];
+    float acc[kFwdWays];
+#pragma unroll
+    for (int j = 0; j < kFwdWays; ++j) acc[j] = 0.0f;
+    for (int e = 0; e < ny[ph]; ++e) {
+      const int64_t ro = static_cast<int64_t>(ry[ph * kListPitch + e]) * W;
+      float t[kFwdWays];
+#pragma unroll
+      for (int j = 0; j < kFwdWays; ++j) t[j] = 0.0f;
+      for (int q = 0; q < mx; ++q) {
+        const int xq = rxp[q];
+        const float wq = wxp[q];
+#pragma unroll
+        for (int j = 0; j < kFwdWays; ++j)
+          t[j] = __fmaf_rn(to_float(fc[j][ro + xq]), wq, t[j]);
+      }
+      const float we = wy[ph * kListPitch + e];
+#pragma unroll
+      for (int j = 0; j < kFwdWays; ++j) acc[j] = __fmaf_rn(we, t[j], acc[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kFwdWays; ++j)
+      if (c + j * part < chunk)
+        yr[i + j * part * oo] = from_float<Tout>(acc[j]);
+    pw += dpw;
+    ph += dph;
+    c += dc;
+    if (pw >= out) {
+      pw -= out;
+      ++ph;
+    }
+    if (ph >= out) {
+      ph -= out;
+      ++c;
+    }
   }
 }
 
@@ -212,17 +343,11 @@ roi_align_bwd_kernel(Levels<float> levels, const int* __restrict__ index,
   const Tg* g = grad + (r * channels + c0) * oo;
   for (int i = threadIdx.x; i < n * oo; i += blockDim.x)
     gs[i] = to_float(g[i]);
-  // the window: the first sample's low corner to the last one's high corner
-  const int y_lo = axis_sample(roi.y0, roi.bin_h, 0, 0, roi.ny, H).c0;
-  const int y_hi =
-      axis_sample(roi.y0, roi.bin_h, out - 1, roi.ny - 1, roi.ny, H).c1;
-  const int x_lo = axis_sample(roi.x0, roi.bin_w, 0, 0, roi.nx, W).c0;
-  const int x_hi =
-      axis_sample(roi.x0, roi.bin_w, out - 1, roi.nx - 1, roi.nx, W).c1;
-  for (int ty = y_lo; ty <= y_hi; ty += kWinTile) {
-    const int th = min(kWinTile, y_hi - ty + 1);
-    for (int tx = x_lo; tx <= x_hi; tx += kWinTile) {
-      const int tw = min(kWinTile, x_hi - tx + 1);
+  const Window win = roi_window(roi, out, H, W);
+  for (int ty = win.y_lo; ty <= win.y_hi; ty += kWinTile) {
+    const int th = min(kWinTile, win.y_hi - ty + 1);
+    for (int tx = win.x_lo; tx <= win.x_hi; tx += kWinTile) {
+      const int tw = min(kWinTile, win.x_hi - tx + 1);
       __syncthreads();  // G staged; the last tile's Ay and Ax read
       for (int i = threadIdx.x; i < out * (th + tw); i += blockDim.x) {
         const int p = i / (th + tw), t = i - p * (th + tw);
@@ -266,12 +391,6 @@ roi_align_bwd_kernel(Levels<float> levels, const int* __restrict__ index,
   }
 }
 
-int grid_for(int64_t total) {
-  // a grid-stride loop over at most this many blocks (132 SMs x 16)
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  return static_cast<int>(blocks < 132 * 16 ? blocks : 132 * 16);
-}
-
 template <typename T>
 Levels<T> make_levels(void* const* ptrs, const int* hs, const int* ws,
                       int num_levels) {
@@ -287,10 +406,13 @@ Levels<T> make_levels(void* const* ptrs, const int* hs, const int* ws,
 template <typename Tin, typename Tout>
 int launch_fwd(void* const* feats, const int* hs, const int* ws,
                int num_levels, int channels, const int* index,
-               const float* coords, int64_t total, int out, void* y,
+               const float* coords, int num_rois, int out, void* y,
                cudaStream_t s) {
-  roi_align_fwd_kernel<Tin, Tout><<<grid_for(total), kThreads, 0, s>>>(
-      make_levels<const Tin>(feats, hs, ws, num_levels), index, coords, total,
+  const dim3 grid(static_cast<unsigned>(num_rois),
+                  static_cast<unsigned>((channels + kFwdChunk - 1) /
+                                        kFwdChunk));
+  roi_align_fwd_kernel<Tin, Tout><<<grid, kThreads, 0, s>>>(
+      make_levels<const Tin>(feats, hs, ws, num_levels), index, coords,
       channels, out, static_cast<Tout*>(y));
   return static_cast<int>(cudaGetLastError());
 }
@@ -318,24 +440,25 @@ extern "C" int lgd_roi_align_fwd(void* const* feats, const int* hs,
                                  int feat_dtype, const int* index,
                                  const float* coords, int num_rois, int out,
                                  void* y, int out_dtype, void* stream) {
-  if (num_levels < 1 || num_levels > kMaxLevels) {
+  if (num_levels < 1 || num_levels > kMaxLevels || out < 1 ||
+      out > kMaxOut || (channels + kFwdChunk - 1) / kFwdChunk > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t total = static_cast<int64_t>(num_rois) * channels * out * out;
-  if (total == 0) return 0;
+  if (num_rois == 0 || channels == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (feat_dtype == 0 && out_dtype == 0) {
     return launch_fwd<float, float>(feats, hs, ws, num_levels, channels,
-                                    index, coords, total, out, y, s);
+                                    index, coords, num_rois, out, y, s);
   }
   if (feat_dtype == 1 && out_dtype == 1) {
     return launch_fwd<__nv_bfloat16, __nv_bfloat16>(
-        feats, hs, ws, num_levels, channels, index, coords, total, out, y, s);
+        feats, hs, ws, num_levels, channels, index, coords, num_rois, out, y,
+        s);
   }
   if (feat_dtype == 1 && out_dtype == 0) {
     return launch_fwd<__nv_bfloat16, float>(feats, hs, ws, num_levels,
-                                            channels, index, coords, total,
-                                            out, y, s);
+                                            channels, index, coords,
+                                            num_rois, out, y, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -14,7 +14,8 @@ The sampling is kernel K4, hand-written CUDA in ``csrc/deform_conv.cu``
 that served as its backward):
 
 - ``deform_sample_fwd`` writes the columns (B, C, K, Ho, Wo) in the
-  input's dtype, each sample computed in float32 and rounded once;
+  input's dtype, each sample computed in float32 and rounded once (per run
+  of output positions, from a window of x staged in shared memory);
 - ``deform_sample_bwd`` takes the columns' gradient and gives the
   gradients of x (summed per tile of output positions in a fixed-point
   window in shared memory, then added to a float32 buffer with global
@@ -46,6 +47,9 @@ from typing import Optional, Tuple
 import torch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# taps per output position that the forward takes (csrc/deform_conv.cu,
+# kMaxTaps): kernels up to 3 x 3
+MAX_TAPS = 9
 
 _lib = None
 
@@ -151,9 +155,9 @@ def _geometry(x, offsets, kernel_size, stride, dilation):
 
 def _check(x, offsets, mask, kernel_size, stride, dilation, grad=None):
     """What the kernels take: CUDA tensors on one card, contiguous; x
-    (B, C, H, W) float32 or bfloat16; float32 offsets (B, 2K, Ho, Wo) and
-    mask (B, K, Ho, Wo) at the conv's output size; the columns' gradient
-    (B, C, K, Ho, Wo) in x's dtype."""
+    (B, C, H, W) float32 or bfloat16; up to MAX_TAPS taps; float32 offsets
+    (B, 2K, Ho, Wo) and mask (B, K, Ho, Wo) at the conv's output size; the
+    columns' gradient (B, C, K, Ho, Wo) in x's dtype."""
     tensors = [t for t in (x, offsets, mask, grad) if t is not None]
     if any(t.device.type != "cuda" for t in tensors):
         raise ValueError("deformable sampling kernels take CUDA tensors")
@@ -166,6 +170,10 @@ def _check(x, offsets, mask, kernel_size, stride, dilation, grad=None):
     if x.dtype not in _DTYPES:
         raise TypeError(f"deformable sampling takes float32 or bfloat16 "
                         f"input, not {x.dtype}")
+    if kernel_size ** 2 > MAX_TAPS:
+        raise ValueError(f"deformable sampling kernels take up to "
+                         f"{MAX_TAPS} taps, not a {kernel_size} x "
+                         f"{kernel_size} kernel")
     if any(t.dtype != torch.float32 for t in (offsets, mask)
            if t is not None):
         raise TypeError("offsets and mask must be float32")

@@ -41,6 +41,10 @@ MAX_LEVELS = 8
 # samples per bin axis at most: FPN routing keeps a bin near 1-4 texels of
 # its level, so the cap binds only past the top level's range
 S_MAX = 4
+# bins per side that the kernels take (csrc/roi_align.cu, kMaxOut), and
+# samples per bin axis (kMaxTexels / 2: each sample's two corners)
+MAX_OUT = 16
+MAX_SAMPLES = 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None
@@ -140,11 +144,13 @@ def multilevel_roi_align_reference(features: Sequence[torch.Tensor],
                                    out_dtype=None) -> torch.Tensor:
     """Plain version of kernel K3's forward: the 4-corner gather form
     (lgd_tpu/ops/roi_align.py:308-330) in float32 accumulation, over ROI
-    chunks so that the gathers stay small. It does the kernel's float32
-    arithmetic in the kernel's order (the samples of a bin in (iy, ix)
-    order, each the sum of its four weighted corners), so the two agree
-    bit for bit in float32; its autograd gradient is the plain version of
-    the backward. features: per-level (B, C, Hl, Wl) of one dtype; index
+    chunks so that the gathers stay small: the samples of a bin in (iy, ix)
+    order, each the sum of its four weighted corners, with the kernel's
+    sample positions and weights. The kernel sums the same products in
+    another order (along each row of the ROI's window, then down the rows),
+    so the two agree within float32 rounding; its autograd gradient is the
+    plain version of the backward. features: per-level (B, C, Hl, Wl) of
+    one dtype; index
     and coords from ``roi_geometry``. Returns (R, C, out, out) in
     ``out_dtype`` (the features' by default)."""
     B, C = features[0].shape[:2]
@@ -196,10 +202,11 @@ def multilevel_roi_align_reference(features: Sequence[torch.Tensor],
     return torch.cat(chunks)
 
 
-def _check(features, index, coords, grad=None):
+def _check(features, index, coords, output_size, grad=None):
     """What the kernels take: CUDA tensors on one card, contiguous; the
     levels (B, C, Hl, Wl) in one dtype, float32 or bfloat16, at most
-    MAX_LEVELS of them; index (R, 4) int32 and coords (R, 4) float32."""
+    MAX_LEVELS of them; index (R, 4) int32 and coords (R, 4) float32; at
+    most MAX_OUT bins per side."""
     tensors = [*features, index, coords] + ([grad] if grad is not None
                                             else [])
     if any(t.device.type != "cuda" for t in tensors):
@@ -226,6 +233,9 @@ def _check(features, index, coords, grad=None):
             or coords.shape != index.shape):
         raise ValueError(f"index and coords must be (R, 4), got "
                          f"{tuple(index.shape)} and {tuple(coords.shape)}")
+    if not 1 <= output_size <= MAX_OUT:
+        raise ValueError(f"ROIAlign kernels take 1..{MAX_OUT} bins per side, "
+                         f"got {output_size}")
     return _kernel()
 
 
@@ -248,9 +258,13 @@ def roi_align_fwd(features: Sequence[torch.Tensor], index: torch.Tensor,
                   out_dtype=None) -> torch.Tensor:
     """Kernel K3, forward: ``multilevel_roi_align_reference`` on the card,
     (R, C, out, out) in ``out_dtype`` (the features' by default; float32
-    keeps bfloat16 levels' sums unrounded). Counts each launch in
-    ``roi_align_fwd.launches``."""
-    lib = _check(features, index, coords)
+    keeps bfloat16 levels' sums unrounded). Per ROI the kernel lists each
+    bin's texels and weights along each axis once; each pooled value is
+    then Ay F Ax^T restricted to its bin, every texel its samples touch
+    read once (the sums in another order than the plain version's). It
+    takes at most MAX_SAMPLES samples per bin axis, as ``roi_geometry``
+    gives them. Counts each launch in ``roi_align_fwd.launches``."""
+    lib = _check(features, index, coords, output_size)
     out_dtype = out_dtype or features[0].dtype
     if out_dtype not in _DTYPES:
         raise TypeError(f"ROIAlign forward writes float32 or bfloat16, not "
@@ -286,7 +300,7 @@ def roi_align_bwd(grad: torch.Tensor, index: torch.Tensor,
     atomics into zeroed float32 buffers, cast at the end to the levels'
     dtype; ROIs overlap, so the order of the sums changes from run to run.
     Counts each launch in ``roi_align_bwd.launches``."""
-    lib = _check(features, index, coords, grad)
+    lib = _check(features, index, coords, grad.shape[-1], grad)
     if grad.dtype not in _DTYPES:
         raise TypeError(f"ROIAlign backward takes a float32 or bfloat16 "
                         f"gradient, not {grad.dtype}")
@@ -348,6 +362,9 @@ def multilevel_roi_align(features: Sequence[torch.Tensor],
         pooled = multilevel_roi_align_reference(features, index, coords,
                                                 output_size)
     elif dev.type == "cuda":
+        if sampling_ratio > MAX_SAMPLES:
+            raise ValueError(f"ROIAlign kernels take up to {MAX_SAMPLES} "
+                             f"samples per bin axis, not {sampling_ratio}")
         feats = [f.contiguous() for f in features]
         pooled = _MultilevelRoiAlign.apply(index, coords, output_size,
                                            *feats)
