@@ -7,11 +7,16 @@
    versions, and builds the CUDA kernels from the sources in the checkout,
    one nvcc per source, all at once.
 2. Kernel K2 (greedy NMS, lgd_tpu_torch/csrc/nms.cu) against its plain
-   PyTorch version on the card: adversarial pools (duplicate scores and
-   boxes, IoU exactly at the threshold, invalid tails, all-invalid) and the
-   inference shape, 8 images x 2000 candidates with class offsets, and the
-   R-CNN RPN's 16 x 2000 pools with the levels as classes. Keep masks must
-   be equal bit for bit.
+   PyTorch version on the card: pools that stress each step of its sweep
+   (NMS_STRESS: disjoint boxes, a chain of alternating kept rows, invalid
+   rows inside the row blocks, duplicates, all invalid, pairs at IoU
+   exactly the threshold) at 63-4097 candidates, one launch per call and
+   the same bits twice; adversarial pools (duplicate scores and boxes, IoU
+   exactly at the threshold, invalid tails, all-invalid) up to 13000
+   candidates, where the sweep stages a row block's tile in chunks, among
+   them the inference shape, 8 images x 2000 candidates with class
+   offsets; and the R-CNN RPN's 16 x 2000 pools with the levels as
+   classes. Keep masks must be equal bit for bit.
 3. Kernels K1a and K1b (masked attention forward and backward,
    lgd_tpu_torch/csrc/attention.cu) against the plain version and its
    autograd gradient, float32 with TF32 off, at B in {1, 16}, 8 heads,
@@ -30,8 +35,10 @@
    800x1344 / 1344x800 test canvases, batches of 8. The NMS launch counter
    must rise, every image must have 1..100 finite detections and COCO
    metrics must come back. One batch is then decoded again with the plain
-   NMS: the valid detections must be equal as sets. The kernel and its
-   plain version are timed on that batch's real pre-NMS pool.
+   NMS: the valid detections must be equal as sets. The kernel (by
+   CUDA-graph replay, by a loop of launches, and its two CUDA kernels
+   apart by torch.profiler) and its plain version are timed on that
+   batch's real pre-NMS pool.
 5. Training: the same model with its 8-head float32 teacher (context box,
    MAX_INSTANCES 100, so 101 tokens) through ``do_train`` on the synthetic
    split at the 800x1344 / 1344x800 training canvases, batch
@@ -62,7 +69,8 @@
    ``do_test``: K2 twice and K3 once per batch, 1..100 finite detections
    per image, COCO metrics; one batch again through ``model.inference``
    with the plain NMS swapped in, equal detection sets, and K3 held
-   against the plain ROIAlign on that batch's own ROIs.
+   against the plain ROIAlign on that batch's own ROIs; K2 held and timed
+   on the batch's RPN and box-head pools, as in 4.
 10. Faster R-CNN LGD training through ``do_train``, checked and timed as in
    5, with K1a/K1b 5, K2 2 and K3 forward and backward 2 each per step;
    then ``do_test(eval_teacher=True)`` and the float32 card-vs-CPU
@@ -103,6 +111,7 @@ non-zero without that line; so it does without a card.
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -264,16 +273,90 @@ def adversarial_pool(rng, B, n, device):
             for a in (boxes, scores, classes, valid)]
 
 
+# sorted pools for K2 that each stress one step of its sweep
+NMS_STRESS = ("disjoint", "chain", "invalid inside blocks", "duplicates",
+              "all invalid", "at the threshold")
+
+
+def nms_stress_pool(kind, B, n, device, seed=0):
+    """Score-sorted boxes (B, n, 4), valid (B, n) and the thresholds to
+    hold K2 at, for one of NMS_STRESS: disjoint boxes (every row kept); a
+    chain in which each row overlaps only the next above 0.5 (IoU 7 / 13;
+    the next but one 1 / 4), so kept rows alternate; random boxes with
+    invalid rows inside the blocks, among them rows that would suppress;
+    runs of 7 equal boxes (only a run's first row can be kept); every row
+    invalid; pairs at IoU exactly 50 / 150, none suppressed at that
+    threshold and every second row just below it. Image b is shifted by
+    1000 b px (integers: every IoU stays exact)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    i = np.arange(n, dtype=np.float32)
+    zero = np.zeros_like(i)
+    third = float(np.float32(50.0) / np.float32(150.0))
+    thresholds = (0.5,)
+    valid = np.ones((B, n), bool)
+    if kind == "disjoint":
+        boxes = np.stack([10 * i, zero, 10 * i + 5, zero + 5], -1)
+    elif kind == "chain":
+        boxes = np.stack([3 * i, zero, 3 * i + 10, zero + 10], -1)
+    elif kind == "at the threshold":
+        x, y = 20 * (i // 2), 5 * (i % 2)
+        boxes = np.stack([x, y, x + 10, y + 10], -1)
+        thresholds = (third, third - 1e-6)
+    else:
+        ctr = np.round(rng.rand(n, 2) * 800)
+        wh = np.round(rng.rand(n, 2) * 300) + 2
+        boxes = np.concatenate([ctr - wh // 2, ctr + wh // 2], -1)
+        if kind == "duplicates":
+            boxes = np.repeat(boxes[::7], 7, axis=0)[:n]
+        elif kind == "invalid inside blocks":
+            valid[:, 20:40] = False
+            valid &= rng.rand(B, n) > 0.1
+        elif kind == "all invalid":
+            valid[:] = False
+        else:
+            raise ValueError(kind)
+    boxes = boxes[None].astype(np.float32).repeat(B, 0)
+    boxes[..., 0::2] += 1000 * np.arange(B, dtype=np.float32)[:, None, None]
+    return (torch.from_numpy(boxes).to(device),
+            torch.from_numpy(valid).to(device), thresholds)
+
+
+def hold_k2(boxes_s, valid_s, thr, what):
+    """K2 on one sorted pool: one launch per call, bit-equal to its plain
+    version, and the same bits from a second call. Returns the keep mask."""
+    from lgd_tpu_torch.ops import nms
+
+    before = nms.greedy_keep_sorted.launches
+    got = nms.greedy_keep_sorted(boxes_s, valid_s, thr)
+    check(nms.greedy_keep_sorted.launches == before + 1,
+          f"K2 launched {nms.greedy_keep_sorted.launches - before} times")
+    again = nms.greedy_keep_sorted(boxes_s, valid_s, thr)
+    want = nms.greedy_keep_sorted_reference(boxes_s, valid_s, thr)
+    check(torch.equal(got, want), f"K2 differs ({what}, {thr})")
+    check(torch.equal(again, got), f"K2 differs from itself ({what}, {thr})")
+    return got
+
+
 def phase_nms(device):
-    """K2 against its plain version on adversarial pools."""
+    """K2 against its plain version on adversarial pools, at the edges of
+    its row blocks and of its chunked tiles, and on NMS_STRESS."""
     import numpy as np
 
     from lgd_tpu_torch.ops import nms
 
+    for n in (63, 129, 2000, 4097):
+        for kind in NMS_STRESS:
+            B = 1 if n > 2000 else 3
+            boxes, valid, thresholds = nms_stress_pool(kind, B, n, device)
+            for thr in thresholds:
+                hold_k2(boxes, valid, thr, f"{kind}, {B} x {n}")
     rng = np.random.RandomState(0)
     third = float(np.float32(50.0) / np.float32(150.0))
     checked = 0
-    for B, n in ((8, 2000), (2, 64), (3, 65), (2, 1), (4, 513)):
+    for B, n in ((8, 2000), (2, 64), (3, 65), (2, 1), (4, 513), (2, 2049),
+                 (1, 13000)):
         boxes, scores, classes, valid = adversarial_pool(rng, B, n, device)
         for thr in (0.5, third, third - 1e-6):
             got = nms.batched_nms_mask(boxes, scores, classes, valid, thr)
@@ -286,12 +369,13 @@ def phase_nms(device):
                                 keep_fn=nms.greedy_keep_sorted_reference)
             check(torch.equal(got, want), f"K2 differs at B={B} n={n} {thr}")
             checked += 2
-        if n > 51:  # the pair at exactly the threshold survives, strictly
+        if n > 51 and B > 1:  # the pair at exactly the threshold survives
             k = nms.nms_mask(boxes[:1, 50:52], scores[:1, 50:52],
                              valid[:1, 50:52], third)
             check(k.tolist() == [[True, True]], k)
     torch.cuda.synchronize()
-    log(f"K2: {checked} adversarial pools bit-equal to the plain version")
+    log(f"K2: {checked} adversarial pools and {len(NMS_STRESS)} stress "
+        f"pools at 4 sizes bit-equal to the plain version")
 
 
 def smoke_cfg(opts=()):
@@ -411,8 +495,8 @@ def phase_slice(device, card):
         f"detection sets; pool {tuple(pool['boxes'].shape)}, "
         f"{int(keep_k.sum())} kept")
 
-    ms = cuda_ms(lambda: nms.greedy_keep_sorted(
-        pool["boxes"], pool["valid"], pool["thr"]), iters=50)
+    ms, loop_ms, split = k2_times(nms.greedy_keep_sorted, pool["boxes"],
+                                  pool["valid"], pool["thr"])
     plain_ms = cuda_ms(lambda: nms.greedy_keep_sorted_reference(
         pool["boxes"], pool["valid"], pool["thr"]), iters=3, warmup=1)
     # what this pool needs: boxes and valid read, keep written; one IoU
@@ -421,9 +505,10 @@ def phase_slice(device, card):
     later = N - 1 - torch.arange(N, device=keep_p.device)
     pairs = int((keep_p.long() * later).sum())
     bound_ms, bound_by = bound(B * N * (16 + 1 + 1), 20 * pairs)
-    log(f"K2 at {tuple(pool['boxes'].shape)}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}, {pairs} "
-        f"IoUs) [{card}]")
+    log(f"K2 at {tuple(pool['boxes'].shape)}: kernel {ms:.4f} ms by "
+        f"CUDA-graph replay ({loop_ms:.4f} over a loop of launches; by "
+        f"kernel {fmt_ms(split)}), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by}, {pairs} IoUs) [{card}]")
 
     def infer():
         model.inference(images, sizes)
@@ -520,6 +605,38 @@ def graph_ms(make, iters=200):
     del graph, fn
     torch.cuda.empty_cache()
     return start.elapsed_time(end) / iters
+
+
+def fmt_ms(times):
+    return ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+
+
+def k2_times(keep_fn, boxes_s, valid_s, thr, calls=20):
+    """Kernel K2 (``keep_fn``, a ``greedy_keep_sorted``) on one sorted
+    pool: (device ms per call by CUDA-graph replay, ms per call by CUDA
+    events over a loop of launches, which the host may pace, {CUDA kernel:
+    device ms per call} from torch.profiler over ``calls`` calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def fn():
+        keep_fn(boxes_s, valid_s, thr)
+
+    graph = graph_ms(lambda: fn)
+    loop = cuda_ms(fn, 50)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            name = re.search(r"(\w+)\(|$", e.name).group(1) or e.name
+            split[name] = (split.get(name, 0.0)
+                           + e.time_range.elapsed_us() / 1e3 / calls)
+    return graph, loop, split
 
 
 def phase_attention(device, card):
@@ -900,16 +1017,23 @@ def phase_roi_align(device, card):
     return records
 
 
-def phase_nms_rpn(device):
-    """K2 at the RPN's shape: 16 images x 2000 proposals with the five
-    levels as classes at NMS 0.7, bit-equal to its plain version."""
+def rpn_pool(device):
+    """A pool at the RPN's training shape: 16 images x 2000 proposals
+    (boxes, scores, levels, valid), the five levels as classes."""
     import numpy as np
-
-    from lgd_tpu_torch.ops import nms
 
     rng = np.random.RandomState(1)
     boxes, scores, _, valid = adversarial_pool(rng, 16, 2000, device)
     levels = torch.from_numpy(rng.randint(0, 5, (16, 2000))).to(device)
+    return boxes, scores, levels, valid
+
+
+def phase_nms_rpn(device):
+    """K2 at the RPN's shape (``rpn_pool``) at NMS 0.7 and 0.5, bit-equal
+    to its plain version."""
+    from lgd_tpu_torch.ops import nms
+
+    boxes, scores, levels, valid = rpn_pool(device)
     for thr in (0.7, 0.5):
         got = nms.batched_nms_mask(boxes, scores, levels, valid, thr)
         want = nms.batched_nms_mask(boxes, scores, levels, valid, thr,
@@ -1716,12 +1840,16 @@ def phase_rcnn_inference(device, card):
         f"{tuple(pools[1][0].shape)}; K3 on the batch's "
         f"{index.shape[0]} ROIs within its tolerance of the plain version "
         f"(max abs err {err_roi:.3e})")
+    for what, (boxes_s, valid_s, thr) in zip(("RPN", "box head"), pools):
+        ms, loop_ms, split = k2_times(nms.greedy_keep_sorted, boxes_s,
+                                      valid_s, thr)
+        log(f"K2 at the {what} pool {tuple(boxes_s.shape)}: kernel "
+            f"{ms:.4f} ms by CUDA-graph replay ({loop_ms:.4f} over a loop "
+            f"of launches; by kernel {fmt_ms(split)}) [{card}]")
     boxes_s, valid_s, thr = pools[0]
-    ms = cuda_ms(lambda: nms.greedy_keep_sorted(boxes_s, valid_s, thr), 50)
     plain_ms = cuda_ms(lambda: nms.greedy_keep_sorted_reference(
         boxes_s, valid_s, thr), 2, 1)
-    log(f"K2 at the RPN pool {tuple(boxes_s.shape)}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms [{card}]")
+    log(f"K2's plain version at the RPN pool: {plain_ms:.4f} ms [{card}]")
 
     def infer():
         model.inference(images, sizes)

@@ -23,7 +23,9 @@ from ..structures.boxes import pairwise_iou
 
 NEG_INF = -1e10
 _WORD = 64
-# the sweep keeps ceil(N / 64) uint64 words in (static-limit) shared memory
+# the largest pool the wrapper takes: the sweep keeps ceil(N / 64) uint64
+# words in shared memory beside its four staged tiles and their column
+# words (130 KB), 178 KB at this N, within the 227 KB a block may have
 MAX_CANDIDATES = _WORD * (48 * 1024 // 8)
 
 _lib = None
@@ -87,15 +89,22 @@ def greedy_keep_sorted(boxes_s: torch.Tensor, valid_s: torch.Tensor,
     B, N = valid_s.shape
     if N > MAX_CANDIDATES:
         raise ValueError(f"NMS kernel: {N} candidates > {MAX_CANDIDATES}")
+    if boxes_s.data_ptr() % 16:
+        raise ValueError("NMS kernel takes 16-byte aligned boxes")
+    # scratch: the row mask (B, N, stride), its rows padded to an even
+    # number of words for the sweep's 16-byte copies, then each row's
+    # column word of its diagonal tile (B, words * 64)
     words = -(-N // _WORD)
-    mask = torch.empty((B, N, words), dtype=torch.int64, device=boxes_s.device)
+    stride = words + words % 2
+    scratch = torch.empty(B * (N * stride + words * _WORD), dtype=torch.int64,
+                          device=boxes_s.device)
     keep = torch.empty((B, N), dtype=torch.bool, device=boxes_s.device)
     lib = _kernel()
     with torch.cuda.device(boxes_s.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lgd_nms_keep_sorted(
             boxes_s.data_ptr(), valid_s.data_ptr(), B, N,
-            float(np.float32(iou_threshold)), mask.data_ptr(),
+            float(np.float32(iou_threshold)), scratch.data_ptr(),
             keep.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"NMS kernel launch failed: cudaError {err}")

@@ -14,8 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (DCN_TILE_CASES, check_roi_case, dcn_inputs,
-                        dcn_tile_case, hold_dcn)
+from chip_smoke import (DCN_TILE_CASES, NMS_STRESS, check_roi_case,
+                        dcn_inputs, dcn_tile_case, hold_dcn, hold_k2,
+                        nms_stress_pool)
 from lgd_tpu_torch.ops import attention, deform_conv, nms, roi_align
 
 
@@ -49,16 +50,47 @@ def _pool(seed, B, n, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,n", [(8, 2000), (2, 64), (3, 65), (1, 1)])
+@pytest.mark.parametrize("B,n", [
+    (8, 2000), (2, 64), (3, 65), (1, 1), (2, 63), (2, 127), (2, 128),
+    (2, 129), (2, 2047), (2, 2049), (1, 4097), (1, 13000)])
 def test_kernel_matches_plain_version(cuda_device, B, n):
+    """Class-aware NMS through the kernel and through the plain sweep, at
+    the edges of the 64-row blocks, at the main paths' 2000 candidates and
+    past 4096, where a row block's tile is staged in chunks of 64 words
+    (13000: 4 chunks for the first block); one launch per call, the same
+    bits from a second call."""
     boxes, scores, classes, valid = _pool(B * 1000 + n, B, n, cuda_device)
     before = nms.greedy_keep_sorted.launches
     got = nms.batched_nms_mask(boxes, scores, classes, valid, 0.5)
+    assert nms.greedy_keep_sorted.launches == before + 1
+    again = nms.batched_nms_mask(boxes, scores, classes, valid, 0.5)
     want = nms.batched_nms_mask(boxes, scores, classes, valid, 0.5,
                                 keep_fn=nms.greedy_keep_sorted_reference)
     torch.cuda.synchronize()
-    assert nms.greedy_keep_sorted.launches == before + 1
     assert torch.equal(got, want)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", NMS_STRESS)
+@pytest.mark.parametrize("B,n", [(3, 64), (3, 65), (2, 129), (2, 2000),
+                                 (1, 4097)])
+def test_kernel_on_pools_that_stress_each_step(cuda_device, kind, B, n):
+    """The kernel on chip_smoke's ``nms_stress_pool``s (``hold_k2``: one
+    launch per call, bit-equal to the plain version, the same bits twice),
+    each pool also holding what it is built to show."""
+    boxes, valid, thresholds = nms_stress_pool(kind, B, n, cuda_device)
+    every_other = (torch.arange(n, device=cuda_device) % 2 == 0).expand(B, n)
+    for thr in thresholds:
+        keep = hold_k2(boxes, valid, thr, kind)
+        assert not (keep & ~valid).any()
+        if kind in ("disjoint", "all invalid") or (
+                kind == "at the threshold" and thr == thresholds[0]):
+            assert torch.equal(keep, valid)
+        elif kind in ("chain", "at the threshold"):
+            assert torch.equal(keep, every_other)
+        elif kind == "duplicates":
+            assert not keep[:, torch.arange(n) % 7 != 0].any()
 
 
 @pytest.mark.cuda
@@ -84,6 +116,9 @@ def test_kernel_wrapper_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError):
         nms.greedy_keep_sorted(torch.zeros((1, 8, 8), device=cuda_device)
                                [..., ::2], valid, 0.5)
+    with pytest.raises(ValueError, match="aligned"):
+        nms.greedy_keep_sorted(torch.zeros(33, device=cuda_device)[1:]
+                               .view(1, 8, 4), valid, 0.5)
 
 
 def _attention_inputs(device, B, Nq, Nk, seed, H=8, D=32):
