@@ -103,6 +103,28 @@
    ``do_test(eval_teacher=True)``.
 14. The float32 card-vs-CPU ``train_forward`` of 7 for the R-101-DCNv2
    model with the same drawn offset convs.
+15. Overfit: the recipe of the JAX package's tests/test_map_overfit.py
+   through the port's ``do_train`` and ``do_test``: RetinaNet R-18 mini,
+   4 synthetic images of 1 class, batch 4, gradients clipped by norm 1.0,
+   LR 5e-3; evaluated after 20 iterations, a checkpoint at 100, the rest
+   to 200 resumed from it in a freshly built model. Late AP50 >= 50, at
+   least 30 above the early one, AP >= 25, the teacher's AP50 > 0.
+16. Real run, through ``lgd_tpu_torch.train.main`` at the width of 5
+   (R-50 FPN, batch 16 at 800x1344 / 1344x800): the synthetic split
+   written as a COCO 2017-format dataset (PNG images, which decode to the
+   written pixels) and registered in the catalog; a Caffe2-named R-50
+   pickle in the MSRA file's layout from a second seeded model; a
+   straight run of REAL_RUN_STEPS steps with a checkpoint every
+   REAL_RUN_PERIOD from that pickle (the student's bottom_up equal to it
+   bit for bit, 0 unmatched tensors); the same run on the same batches
+   killed by its loader after its first checkpoint, then ``--resume``
+   (the restored state equal to the saved one bit for bit, resumed at
+   iteration REAL_RUN_PERIOD, metrics.json holding both halves, each
+   step's losses and the final parameters equal to the straight run's,
+   with cuDNN deterministic); ``--eval-only`` on the run directory,
+   whose AP equals the trained model's. K1a/K1b 5 launches a step, K2 one
+   a batch of evaluation. Checkpoint size, save and restore seconds and
+   the phase's wall time are printed.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
@@ -111,9 +133,11 @@ non-zero without that line; so it does without a card.
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -1584,7 +1608,7 @@ def phase_train(device, card, cfg, what, steps, timed, distill_from,
     zero_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    do_train(cfg, model, device, loader)
+    do_train(cfg, model, device, loader=loader)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
@@ -2228,12 +2252,529 @@ def phase_dcn_training(device, card):
     torch.cuda.empty_cache()
     return train
 
+# the Caffe2 names of the MSRA ImageNet pickles (detectron2's
+# ImageNetPretrained/MSRA/R-50.pkl): a convolution's weight is
+# <block>_<branch>_w, its affine norm <block>_<branch>_bn_{s,b}; the stem
+# conv1_w and res_conv1_bn_{s,b}
+C2_BRANCH = {"shortcut": "branch1", "conv1": "branch2a", "conv2": "branch2b",
+             "conv3": "branch2c"}
+C2_STAT = {"scale": "s", "bias": "b", "mean": "rm", "var": "riv"}
+
+
+def caffe2_name(key):
+    """A key of the port's ResNet state_dict (``res2_0.conv1_norm.scale``)
+    -> its Caffe2 name (``res2_0_branch2a_bn_s``)."""
+    module, leaf = key.rsplit(".", 1)
+    norm = module.endswith("_norm")
+    module = module[:-len("_norm")] if norm else module
+    if module == "stem_conv1":
+        base = "res_conv1" if norm else "conv1"
+    else:
+        block, conv = module.split(".")
+        base = f"{block}_{C2_BRANCH[conv]}"
+    return f"{base}_bn_{C2_STAT[leaf]}" if norm else f"{base}_w"
+
+
+def caffe2_backbone(bottom_up, seed, stats=("scale", "bias")):
+    """{Caffe2 name: float32 array} of a ResNet's convolutions and its
+    FrozenBN ``stats``, with the classifier the MSRA files carry. A seeded
+    model's stats are the identity; these are drawn from ``seed`` within
+    5% of it (scale and var in [0.95, 1.05], bias and mean N(0, 0.01)):
+    each moves the features a little, where stats in [0.5, 1.5] made the
+    seeded R-50's features grow 1.6 times through res5 and its training
+    diverge by the third step."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = {}
+    for key, value in bottom_up.state_dict().items():
+        leaf = key.rsplit(".", 1)[1]
+        if key.rsplit(".", 1)[0].endswith("_norm"):
+            if leaf not in stats:
+                continue
+            value = torch.from_numpy(
+                1 + (rng.rand(value.numel()).astype(np.float32) - 0.5) * 0.1
+                if leaf in ("scale", "var") else
+                rng.randn(value.numel()).astype(np.float32) * 0.01)
+        out[caffe2_name(key)] = value.detach().float().cpu().numpy()
+    out["fc1000_w"] = rng.randn(1000, 8).astype(np.float32)
+    out["fc1000_b"] = np.zeros(1000, np.float32)
+    return out
+
+
+# COCO 2017 category ids of the 80 thing classes, in contiguous order
+COCO_CATEGORY_IDS = (*range(1, 12), *range(13, 26), 27, 28, *range(31, 45),
+                     *range(46, 66), 67, 70, *range(72, 83), *range(84, 91))
+
+
+def write_coco_split(dicts, root, split="val2017"):
+    """Writes dataset dicts with in-memory images (the synthetic split) as a
+    COCO-format dataset: ``root/<split>/<id>.png`` (the pixels rounded to
+    uint8, which PNG keeps exactly) and ``root/annotations/
+    instances_<split>.json`` with COCO 2017's fields and category ids.
+    Returns (json path, image directory, the uint8 images by image id)."""
+    import cv2
+    import numpy as np
+
+    image_dir = os.path.join(root, split)
+    os.makedirs(image_dir, exist_ok=True)
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    images, annotations, pixels = [], [], {}
+    for d in dicts:
+        img = np.clip(np.rint(d["image"]), 0, 255).astype(np.uint8)
+        name = f"{d['image_id']:012d}.png"
+        check(cv2.imwrite(os.path.join(image_dir, name), img), name)
+        pixels[d["image_id"]] = img
+        images.append({"id": d["image_id"], "file_name": name,
+                       "height": d["height"], "width": d["width"],
+                       "license": 1, "coco_url": "", "flickr_url": "",
+                       "date_captured": ""})
+        for a in d["annotations"]:
+            x, y, w, h = a["bbox"]
+            annotations.append({
+                "id": len(annotations) + 1, "image_id": d["image_id"],
+                "category_id": COCO_CATEGORY_IDS[a["category_id"]],
+                "bbox": [x, y, w, h], "area": w * h,
+                "iscrowd": a["iscrowd"], "segmentation": a["segmentation"]})
+    path = os.path.join(root, "annotations", f"instances_{split}.json")
+    with open(path, "w") as f:
+        json.dump({
+            "info": {"description": "synthetic split", "version": "1.0",
+                     "year": 2017, "contributor": "", "date_created": ""},
+            "licenses": [{"id": 1, "name": "", "url": ""}],
+            "images": images, "annotations": annotations,
+            "categories": [{"id": c, "name": f"class{c}",
+                            "supercategory": "thing"}
+                           for c in COCO_CATEGORY_IDS]}, f)
+    return path, image_dir, pixels
+
+
+# the overfit recipe of tests/test_map_overfit.py: 4 images of 1 class,
+# evaluated after OVERFIT_ITERS[0] iterations, a checkpoint at the second,
+# a fresh process state resumed from it for the rest
+OVERFIT_ITERS = (20, 100, 200)
+MINI_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "configs", "lgd_tpu",
+                         "retinanet_R18_synthetic_mini.yaml")
+
+
+def overfit_cfg(out_dir, max_iter):
+    """The JAX package's overfit test's config, for the port: RetinaNet
+    R-18 mini, float32, 64x96 canvases, 4 images of 1 class at batch 4,
+    gradients clipped by norm at 1.0, LR 5e-3 after 100 warm-up
+    iterations, distillation from iteration 20."""
+    from lgd_tpu_torch.config import get_cfg
+    from lgd_tpu_torch.data import register_synthetic
+
+    register_synthetic("synthetic_overfit_1c", num_images=4, num_classes=1)
+    cfg = get_cfg()
+    cfg.merge_from_file(MINI_YAML)
+    cfg.MODEL.META_ARCHITECTURE = "Distillator" + cfg.MODEL.META_ARCHITECTURE
+    cfg.DATASETS.TRAIN = ("synthetic_overfit_1c",)
+    cfg.DATASETS.TEST = ("synthetic_overfit_1c",)
+    cfg.MODEL.RETINANET.NUM_CLASSES = 1
+    cfg.SOLVER.MAX_ITER = max_iter
+    cfg.SOLVER.IMS_PER_BATCH = 4
+    cfg.SOLVER.CHECKPOINT_PERIOD = OVERFIT_ITERS[1]
+    cfg.SOLVER.CLIP_GRADIENTS.ENABLED = True
+    cfg.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "norm"
+    cfg.SOLVER.CLIP_GRADIENTS.CLIP_VALUE = 1.0
+    cfg.MODEL.BACKBONE.FREEZE_AT = 0
+    cfg.MODEL.ANCHOR_GENERATOR.SIZES = [
+        [x, x * 2 ** (1 / 3), x * 2 ** (2 / 3)] for x in [8, 16, 32, 64, 128]]
+    for node in (cfg.MODEL.DISTILLATOR.STUDENT.SOLVER,
+                 cfg.MODEL.DISTILLATOR.TEACHER.SOLVER):
+        node.BASE_LR = 5e-3
+        node.STEPS = (100000,)
+        node.WARMUP_ITERS = 100
+    cfg.MODEL.DISTILLATOR.PRE_NONDISTILL_ITERS = 20
+    cfg.MODEL.DISTILLATOR.PRE_FREEZE_STUDENT_BACKBONE_ITERS = 0
+    cfg.OUTPUT_DIR = out_dir
+    cfg.INPUT.MIN_SIZE_TRAIN = (64,)
+    cfg.INPUT.MAX_SIZE_TRAIN = 96
+    cfg.INPUT.MIN_SIZE_TEST = 64
+    cfg.INPUT.MAX_SIZE_TEST = 96
+    cfg.MODEL.RETINANET.SCORE_THRESH_TEST = 1e-3
+    return cfg.freeze()
+
+
+def phase_overfit(device, card):
+    """The port learns: the JAX package's overfit test through do_train
+    and do_test, with the checkpoint at OVERFIT_ITERS[1] and the rest
+    resumed from it in a freshly built model. Returns the results."""
+    from lgd_tpu_torch.engine.trainer import do_test, do_train
+    from lgd_tpu_torch.models.distillator import build_model
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="lgd_overfit_") as out:
+        aps = []
+        for i, max_iter in enumerate(OVERFIT_ITERS):
+            cfg = overfit_cfg(out, max_iter)
+            model = build_model(cfg, dtype=torch.float32, device=device,
+                                seed=max(cfg.SEED, 0))
+            do_train(cfg, model, device, resume=i > 0)
+            if i != 1:
+                aps.append(do_test(cfg, model, device)["bbox"])
+        teacher = do_test(cfg, model, device, eval_teacher=True)["bbox"]
+    wall = time.perf_counter() - t0
+    early, late = aps
+    log(f"overfit (R-18 mini, 4 images of 1 class, batch 4): AP50 "
+        f"{early['AP50']:.4f} after {OVERFIT_ITERS[0]} iterations, AP50 "
+        f"{late['AP50']:.4f} AP {late['AP']:.4f} after {OVERFIT_ITERS[2]} "
+        f"(resumed from the checkpoint of iteration {OVERFIT_ITERS[1] - 1}), "
+        f"teacher AP50 {teacher['AP50']:.4f}; wall {wall:.2f} s [{card}]")
+    check(math.isfinite(late["AP50"]) and late["AP50"] >= 50.0,
+          f"late AP50 {late['AP50']} < 50")
+    check(late["AP50"] >= early["AP50"] + 30.0,
+          f"AP50 rose from {early['AP50']} to only {late['AP50']}")
+    check(late["AP"] >= 25.0, f"late AP {late['AP']} < 25")
+    check(teacher["AP50"] > 0.0, f"teacher AP50 {teacher['AP50']}")
+    return {"early": early, "late": late, "teacher": teacher, "wall": wall}
+
+REAL_RUN_STEPS = 4     # do_train steps of the real run
+REAL_RUN_PERIOD = 2    # its checkpoint period; the killed run dies after it
+# the resumed run against the straight one where they are not equal bit
+# for bit: each loss relative to itself, each final parameter relative to
+# its tensor's largest magnitude
+REAL_RUN_TOL = 1e-4
+
+
+class Killed(Exception):
+    """The killed run's loader raises it in place of its third batch."""
+
+
+class patched:
+    """Sets ``obj.name`` to ``value`` inside a with block."""
+
+    def __init__(self, obj, name, value):
+        self.obj, self.name, self.value = obj, name, value
+
+    def __enter__(self):
+        self.old = getattr(self.obj, self.name)
+        setattr(self.obj, self.name, self.value)
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.old)
+
+
+def host_copy(tree):
+    """A nest of dicts, tensors and numbers, the tensors cloned to the
+    host."""
+    if isinstance(tree, dict):
+        return {k: host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return tree
+
+
+def tree_diff(a, b):
+    """(bit for bit, the largest difference relative to each tensor's
+    largest magnitude) of two nests of the same structure."""
+    if isinstance(a, dict):
+        check(sorted(a) == sorted(b), (sorted(a), sorted(b)))
+        diffs = [tree_diff(a[k], b[k]) for k in a]
+        return (all(d[0] for d in diffs),
+                max([d[1] for d in diffs], default=0.0))
+    if isinstance(a, torch.Tensor):
+        check(a.shape == b.shape and a.dtype == b.dtype, (a.shape, b.shape))
+        if torch.equal(a, b):
+            return True, 0.0
+        a, b = a.double(), b.double()
+        scale = max(float(a.abs().max()), 1e-30)
+        return False, float((a - b).abs().max()) / scale
+    return a == b, 0.0 if a == b else math.inf
+
+
+def real_run_cfg(opts=()):
+    """The real run: RetinaNet R-50 FPN LGD at full width as phase 5 (the
+    8-head float32 teacher, bf16 student convolutions, 800x1344 / 1344x800
+    canvases, batch 16), REAL_RUN_STEPS steps with a checkpoint every
+    REAL_RUN_PERIOD, distillation from step 3."""
+    return train_cfg(["SOLVER.MAX_ITER", REAL_RUN_STEPS,
+                      "SOLVER.CHECKPOINT_PERIOD", REAL_RUN_PERIOD, *opts])
+
+
+def phase_real_run(device, card, cfg_opts=()):
+    """What a user does for a real run, through lgd_tpu_torch.train.main:
+    the synthetic split as a COCO-format dataset on disk, registered in the
+    catalog; a cold start from a Caffe2-named R-50 pickle; a straight run;
+    a run killed after its checkpoint of iteration REAL_RUN_PERIOD - 1,
+    resumed with ``--resume``; ``--eval-only`` on its OUTPUT_DIR. Returns
+    the launches of the straight run and of the resumed one."""
+    import logging
+    import pickle
+    import warnings
+
+    import cv2
+    import numpy as np
+
+    from lgd_tpu_torch import train as ttrain
+    from lgd_tpu_torch.data import (
+        DatasetCatalog,
+        MetadataCatalog,
+        TestLoader,
+        TrainLoader,
+        get_dataset_dicts,
+        load_coco_json,
+        make_synthetic_dataset_dicts,
+    )
+    from lgd_tpu_torch.engine import checkpoint, trainer
+    from lgd_tpu_torch.models.distillator import build_model
+    from lgd_tpu_torch.utils.weight_convert import convert_resnet_state
+
+    t_phase = time.perf_counter()
+    name = "synthetic_coco_instances"
+    tmp = tempfile.TemporaryDirectory(prefix="lgd_real_run_")
+    root = tmp.name
+
+    # 1-2. the split on disk as COCO 2017 has it, then through the catalog
+    dicts = make_synthetic_dataset_dicts(16, seed=0)
+    js, image_dir, pixels = write_coco_split(dicts, os.path.join(root, "coco"))
+    loaded = load_coco_json(js, image_dir)
+    for d, e in zip(dicts, loaded):
+        check({k: d[k] for k in ("height", "width", "image_id",
+                                 "annotations")}
+              == {k: e[k] for k in ("height", "width", "image_id",
+                                    "annotations")}, d["image_id"])
+        check(np.array_equal(cv2.imread(e["file_name"], cv2.IMREAD_COLOR),
+                             pixels[d["image_id"]]), e["file_name"])
+    DatasetCatalog.register(name, lambda: load_coco_json(js, image_dir, name))
+    MetadataCatalog.get(name).update(evaluator_type="coco", json_file=js,
+                                     image_root=image_dir)
+    cfg = real_run_cfg(["DATASETS.TRAIN", (name,), "DATASETS.TEST", (name,),
+                        "MODEL.DEVICE", str(device), *cfg_opts])
+    yaml = os.path.join(root, "real_run.yaml")
+    with open(yaml, "w") as f:
+        f.write(cfg.dump())
+
+    # 3. the backbone pickle: a second seeded model's bottom_up, its
+    # FrozenBN scale and bias drawn, in the MSRA file's Caffe2 names
+    donor = build_model(cfg, dtype=torch.float32, device="cpu", seed=1)
+    c2 = caffe2_backbone(donor.student.bottom_up, seed=2)
+    want_backbone = convert_resnet_state(c2)
+    n_trunk = len(dict(donor.student.bottom_up.named_parameters()))
+    check(len(want_backbone["params"]) == n_trunk,
+          (len(want_backbone["params"]), n_trunk))
+    del donor
+    pkl = os.path.join(root, "R-50.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump({"model": c2, "__author__": "chip_smoke"}, f)
+
+    it = iter(TrainLoader(cfg))
+    batches = [next(it) for _ in range(REAL_RUN_STEPS)]
+    del it
+    eval_batches = len(TestLoader(cfg, get_dataset_dicts(name), 8)._sched)
+
+    def args(out, *flags):
+        return ttrain.default_argument_parser().parse_args(
+            [*flags, "--config-file", yaml, "OUTPUT_DIR", out,
+             "MODEL.WEIGHTS", pkl])
+
+    # what the runs did: the student's bottom_up after each cold start,
+    # each step's losses, the state each save wrote and each restore gave
+    cold, steps, saves, restores, lines = [], [], [], [], []
+    make_train_step = trainer.make_train_step
+    maybe_load_pretrained = trainer.maybe_load_pretrained
+    save, restore = checkpoint.Checkpointer.save, checkpoint.Checkpointer.restore
+
+    def loading(cfg, model):
+        maybe_load_pretrained(cfg, model)
+        cold.append(host_copy(model.student.bottom_up.state_dict()))
+        return model
+
+    def recording(cfg, model):
+        init_state, train_step = make_train_step(cfg, model)
+
+        def step(state, batch):
+            first = state.step
+            state, metrics = train_step(state, batch)
+            steps.append((first, host_copy(metrics)))
+            return state, metrics
+        return init_state, step
+
+    def timed_save(self, step, model, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(self, step, model, state)
+        seconds = time.perf_counter() - t0
+        saves.append((step, seconds, os.path.getsize(self.path(step)),
+                      host_copy(model.state_dict()), host_copy(vars(state)),
+                      state.generator.get_state()))
+
+    def timed_restore(self, step, model, state=None):
+        t0 = time.perf_counter()
+        out = restore(self, step, model, state)
+        torch.cuda.synchronize()
+        restores.append((step, time.perf_counter() - t0,
+                         host_copy(model.state_dict()),
+                         None if out is None else host_copy(vars(out)),
+                         None if out is None else out.generator.get_state()))
+        return out
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    handler = Lines()
+    logging.getLogger("lgd_tpu_torch.utils.weight_convert").addHandler(handler)
+    deterministic = (torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    # deterministic algorithms where torch has them, a warning naming each
+    # op that has none; uninitialized memory stays as the path leaves it
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    straight, killed = os.path.join(root, "straight"), os.path.join(
+        root, "killed")
+
+    def dies():
+        yield from batches[:REAL_RUN_PERIOD]
+        raise Killed()
+
+    with warnings.catch_warnings(record=True) as caught, \
+            patched(trainer, "maybe_load_pretrained", loading), \
+            patched(trainer, "make_train_step", recording), \
+            patched(checkpoint.Checkpointer, "save", timed_save), \
+            patched(checkpoint.Checkpointer, "restore", timed_restore):
+        warnings.simplefilter("always")
+        zero_launches()
+        res_straight = ttrain.main(args(straight), loader=batches)
+        launches_straight = read_launches()
+        n_straight, n_saves = len(steps), len(saves)
+        died = False
+        try:
+            ttrain.main(args(killed), loader=dies())
+        except Killed:
+            died = True
+        check(died, "the killed run ran on")
+        n_killed = len(steps)
+        zero_launches()
+        res_resumed = ttrain.main(args(killed, "--resume"),
+                                  loader=batches[REAL_RUN_PERIOD:])
+        launches_resumed = read_launches()
+        zero_launches()
+        res_eval = ttrain.main(args(killed, "--eval-only"))
+        launches_eval = read_launches()
+    torch.use_deterministic_algorithms(False)
+    torch.utils.deterministic.fill_uninitialized_memory = fill
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        deterministic)
+    logging.getLogger("lgd_tpu_torch.utils.weight_convert").removeHandler(
+        handler)
+
+    # 4. the cold start: the pickle's tensors, bit for bit, none unmatched
+    check(len(cold) == 3, len(cold))
+    want = {k[len("student.bottom_up."):]: torch.from_numpy(v)
+            for coll in want_backbone.values() for k, v in coll.items()}
+    for got in cold:
+        for key, value in want.items():
+            check(torch.equal(got[key], value), f"cold start {key}")
+    loaded_lines = [m for m in lines if m.startswith("Loaded pretrained")]
+    check(len(loaded_lines) == 3 and all("(0 unmatched)" in m
+                                         for m in loaded_lines),
+          loaded_lines)
+    log(f"real run: cold start from a Caffe2-named R-50 pickle: "
+        f"{len(want)} tensors equal bit for bit; {loaded_lines[0]}")
+
+    # 5-6. the kill, the restore and the resume
+    ckpt = checkpoint.Checkpointer(killed)
+    check(ckpt.steps() == [REAL_RUN_PERIOD - 1, REAL_RUN_STEPS - 1],
+          ckpt.steps())
+    # the killed run's one save, the resume's restore
+    check(len(saves) == n_saves + 2 and len(restores) == 2,
+          (len(saves), n_saves, len(restores)))
+    step, _, size, saved_model, saved_state, saved_gen = saves[n_saves]
+    check(step == REAL_RUN_PERIOD - 1, step)
+    step, restore_s, restored_model, restored_state, restored_gen = (
+        restores[0])
+    check(step == REAL_RUN_PERIOD - 1, step)
+    exact = [tree_diff(saved_model, restored_model),
+             tree_diff({k: saved_state[k] for k in ("stu_opt", "tea_opt",
+                                                    "step",
+                                                    "loss_normalizer")},
+                       {k: restored_state[k] for k in ("stu_opt", "tea_opt",
+                                                       "step",
+                                                       "loss_normalizer")})]
+    check(all(e[0] for e in exact) and torch.equal(saved_gen, restored_gen),
+          f"the restored state differs from the saved one: {exact}")
+    check(n_straight == REAL_RUN_STEPS and n_killed == REAL_RUN_STEPS
+          + REAL_RUN_PERIOD and len(steps) == 2 * REAL_RUN_STEPS,
+          (n_straight, n_killed, len(steps)))
+    resumed_steps = steps[n_killed:]
+    check(resumed_steps[0][0] == REAL_RUN_PERIOD,
+          f"resumed at step {resumed_steps[0][0]}")
+    with open(os.path.join(killed, "metrics.json")) as f:
+        its = [json.loads(line)["iteration"] for line in f]
+    check(its == [REAL_RUN_PERIOD - 1, REAL_RUN_STEPS - 1], its)
+    pairs = list(zip(steps[:n_straight], steps[n_straight:]))
+    losses = [tree_diff({k: v for k, v in a[1].items()
+                         if isinstance(v, torch.Tensor)},
+                        {k: v for k, v in b[1].items()
+                         if isinstance(v, torch.Tensor)})
+              for a, b in pairs]
+    final = tree_diff(
+        torch.load(os.path.join(straight, "model_final.pth"),
+                   map_location="cpu", weights_only=True),
+        torch.load(os.path.join(killed, "model_final.pth"),
+                   map_location="cpu", weights_only=True))
+    bitwise = all(d[0] for d in losses) and final[0]
+    culprits = sorted({str(w.message).split(".")[0] for w in caught
+                       if "deterministic" in str(w.message)})
+    if bitwise:
+        log("real run: the killed and resumed run equals the straight run "
+            "bit for bit (each step's losses, the final parameters and "
+            "buffers)")
+    else:
+        worst = max([d[1] for d in losses] + [final[1]])
+        log(f"real run: the killed and resumed run is NOT bit for bit the "
+            f"straight run: largest relative difference {worst:.3e} "
+            f"(limit {REAL_RUN_TOL}); ops without a deterministic "
+            f"implementation: {culprits}")
+        check(worst <= REAL_RUN_TOL, f"{worst} > {REAL_RUN_TOL}")
+    if culprits:
+        log(f"  torch named as not deterministic: {culprits}")
+
+    # 7. --eval-only on the run directory, against the in-memory model
+    check(restores[1][0] == REAL_RUN_STEPS - 1, restores[1][0])
+    for key in ("AP", "AP50", "AP75", "AR@100"):
+        a, b = res_eval["bbox"][key], res_resumed["bbox"][key]
+        check(a == b or (math.isnan(a) and math.isnan(b)),
+              f"--eval-only {key} {a} != the trained model's {b}")
+    check(math.isfinite(res_straight["bbox"]["AP"]), res_straight)
+    per_step = {"K1a": 5, "K1b": 5}
+    check(launches_straight == {n: REAL_RUN_STEPS * per_step.get(n, 0)
+                                + eval_batches * (n == "K2")
+                                for n in launch_counters()},
+          f"straight run launches {launches_straight}")
+    check(launches_resumed == {
+        n: (REAL_RUN_STEPS - REAL_RUN_PERIOD) * per_step.get(n, 0)
+        + eval_batches * (n == "K2") for n in launch_counters()},
+        f"resumed run launches {launches_resumed}")
+    check(launches_eval == expect_launches({"K2": 1}, eval_batches),
+          f"--eval-only launches {launches_eval}")
+    save_s = [f"{s[1]:.2f}" for s in saves]
+    wall = time.perf_counter() - t_phase
+    log(f"real run: --eval-only restored iteration {REAL_RUN_STEPS - 1}: AP "
+        f"{res_eval['bbox']['AP']:.4f} AP50 {res_eval['bbox']['AP50']:.4f}, "
+        f"as the trained model; launches straight {launches_straight}, "
+        f"resumed {launches_resumed}, --eval-only {launches_eval}")
+    log(f"real run: checkpoint {size / 2 ** 30:.3f} GiB, save {save_s} s, "
+        f"restore {restore_s:.2f} s (and {restores[1][1]:.2f} s for "
+        f"--eval-only), phase wall {wall:.2f} s [{card}]")
+    DatasetCatalog.remove(name)
+    tmp.cleanup()
+    return launches_straight, launches_resumed
+
+
 
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     card = card_header()
     build_kernels()
@@ -2275,6 +2816,9 @@ def main():
                                          "K4 forward": 2 * DCN_UNITS,
                                          "K4 backward": DCN_UNITS},
                       draw_offset_convs)
+    phase_overfit(device, card)
+    paths["real run"], paths["real run, resumed"] = phase_real_run(device,
+                                                                   card)
     for name, launches in paths.items():
         log(f"launches on the {name} path: {launches}")
     for name in records:
@@ -2307,6 +2851,8 @@ def main():
          "replaces": "lgd_tpu/ops/deform_conv.py:563",
          **records["K4 backward"]},
     ]
+    log(f"chip_smoke.py wall {time.perf_counter() - t_start:.1f} s "
+        f"[{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

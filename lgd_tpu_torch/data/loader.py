@@ -11,15 +11,19 @@ Batches stay numpy here; the engine moves them to the device.
 
 from __future__ import annotations
 
+import logging
 import queue
 import threading
+from collections import Counter
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
 from ..structures import BatchedInstances
-from .catalog import get_dataset_dicts
+from .coco import get_detection_dataset_dicts
 from .dataset_mapper import DatasetMapper
+
+logger = logging.getLogger(__name__)
 
 
 def _ceil_to(x, d):
@@ -112,14 +116,25 @@ class TestLoader:
                 "classes": np.zeros((0,), np.int64)}
 
     def __iter__(self):
+        """An image that cannot be read is skipped with a warning: its slot
+        is padding, and the schedule stays as it was."""
         rng = np.random.RandomState(0)
         for b, idxs in self._sched:
-            samples = [self.mapper(self.dataset_dicts[i], rng) for i in idxs]
+            samples, unread = [], []
+            for i in idxs:
+                try:
+                    s = self.mapper(self.dataset_dicts[i], rng)
+                except OSError as e:
+                    logger.warning("skipping unreadable eval image %s: %s",
+                                   self.dataset_dicts[i].get("file_name"), e)
+                    unread.append(len(samples))
+                    s = self._dummy_sample()
+                samples.append(s)
             n_real = len(samples)
             samples += [self._dummy_sample()
                         for _ in range(self.batch_size - n_real)]
             batch = pack_batch(samples, self.canvases[b], self.max_instances)
-            for i in range(n_real, self.batch_size):
+            for i in [*unread, *range(n_real, self.batch_size)]:
                 batch["_meta"][i] = None  # padding slot
             yield batch
 
@@ -141,16 +156,61 @@ class TrainingSampler:
             yield from order.tolist()
 
 
+class RepeatFactorTrainingSampler(TrainingSampler):
+    """detectron2's RepeatFactorTrainingSampler (DATALOADER.SAMPLER_TRAIN;
+    lgd_tpu/data/loader.py:79-114): each image is repeated
+    max over its categories c of max(1, sqrt(t / f(c))) times, f(c) the
+    share of images with c, the fraction rounded stochastically in every
+    epoch."""
+
+    def __init__(self, dataset_dicts, repeat_thresh: float, seed: int = 2022,
+                 shuffle: bool = True):
+        super().__init__(len(dataset_dicts), seed, shuffle)
+        freq = Counter()
+        n = len(dataset_dicts)
+        cats_per_img = []
+        for d in dataset_dicts:
+            cats = {a["category_id"] for a in d.get("annotations", [])
+                    if a.get("iscrowd", 0) == 0}
+            cats_per_img.append(cats)
+            freq.update(cats)
+        cat_rep = {c: max(1.0, np.sqrt(repeat_thresh / (v / n)))
+                   for c, v in freq.items()}
+        self._rep = np.asarray([max([cat_rep[c] for c in cats], default=1.0)
+                                for cats in cats_per_img])
+
+    def __iter__(self) -> Iterator[int]:
+        g = np.random.RandomState(self.seed)
+        while True:
+            rands = g.rand(self.size)
+            rep = np.floor(self._rep) + (rands < (self._rep % 1.0))
+            indices = np.repeat(np.arange(self.size), rep.astype(np.int64))
+            if self.shuffle:
+                indices = indices[g.permutation(len(indices))]
+            yield from indices.tolist()
+
+
+def log_class_histogram(dataset_dicts, class_names=None):
+    """The training set's instances per class, the 20 most frequent
+    (reference utils/build.py:167-209)."""
+    counts = Counter()
+    for d in dataset_dicts:
+        counts.update(a["category_id"] for a in d.get("annotations", [])
+                      if a.get("iscrowd", 0) == 0)
+    rows = "  ".join(
+        f"{(class_names[c] if class_names and c < len(class_names) else c)}"
+        f":{n}" for c, n in counts.most_common(20))
+    logger.info("Instance distribution (%d total, top 20): %s",
+                sum(counts.values()), rows)
+
+
 def train_dataset_dicts(cfg) -> List[Dict]:
     """DATASETS.TRAIN concatenated; with FILTER_EMPTY_ANNOTATIONS, images
     without a non-crowd annotation are dropped (reference
     utils/build.py:48-76)."""
-    dicts = [d for name in cfg.DATASETS.TRAIN for d in get_dataset_dicts(name)]
-    if cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS:
-        dicts = [d for d in dicts
-                 if any(a.get("iscrowd", 0) == 0
-                        for a in d.get("annotations", []))]
-    return dicts
+    return get_detection_dataset_dicts(
+        cfg.DATASETS.TRAIN,
+        filter_empty=cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS)
 
 
 class TrainLoader:
@@ -159,19 +219,23 @@ class TrainLoader:
     (the reference's AspectRatioGroupedDataset), mapped ahead of the
     consumer in a thread (TPU.PREFETCH batches). The sampler's seed and the
     augmentation stream are the JAX package's, so both draw the same
-    batches: SEED, or 2022 when SEED <= 0."""
+    batches: SEED, or 2022 when SEED <= 0. DATALOADER.SAMPLER_TRAIN picks
+    the sampler: TrainingSampler, or RepeatFactorTrainingSampler at
+    DATALOADER.REPEAT_THRESHOLD."""
 
     def __init__(self, cfg, dataset_dicts: Optional[List[Dict]] = None):
-        if cfg.DATALOADER.SAMPLER_TRAIN != "TrainingSampler":
-            raise NotImplementedError(
-                f"DATALOADER.SAMPLER_TRAIN {cfg.DATALOADER.SAMPLER_TRAIN!r} "
-                f"is not ported")
         self.dataset_dicts = (train_dataset_dicts(cfg) if dataset_dicts is None
                               else dataset_dicts)
         self.mapper = DatasetMapper(cfg, is_train=True)
+        log_class_histogram(self.dataset_dicts)
         self.batch_size = cfg.SOLVER.IMS_PER_BATCH
         seed = cfg.SEED if cfg.SEED > 0 else 2022
-        self.sampler = TrainingSampler(len(self.dataset_dicts), seed=seed)
+        if cfg.DATALOADER.SAMPLER_TRAIN == "RepeatFactorTrainingSampler":
+            self.sampler = RepeatFactorTrainingSampler(
+                self.dataset_dicts, cfg.DATALOADER.REPEAT_THRESHOLD,
+                seed=seed)
+        else:
+            self.sampler = TrainingSampler(len(self.dataset_dicts), seed=seed)
         self.canvases = train_canvas_shapes(cfg)
         self.max_instances = cfg.TPU.MAX_INSTANCES
         self.aspect_grouping = cfg.DATALOADER.ASPECT_RATIO_GROUPING

@@ -1,6 +1,6 @@
 """Synthetic mini-COCO split (BASELINE.json config #1): deterministic random
 images with painted rectangles and matching GT. A copy of
-lgd_tpu/data/synthetic.py:17-53 that draws the same RNG sequence, so both
+lgd_tpu/data/synthetic.py:17-69 that draws the same RNG sequence, so both
 packages see identical images and annotations for the same seed."""
 
 from __future__ import annotations
@@ -46,3 +46,20 @@ def make_synthetic_dataset_dicts(num_images: int = 16, seed: int = 0,
             "annotations": annos,
         })
     return dicts
+
+
+def register_synthetic(name: str = "synthetic_mini", num_images: int = 16,
+                       seed: int = 0, num_classes: int = 80):
+    """Register the split in the DatasetCatalog, with COCO evaluation
+    (lgd_tpu/data/synthetic.py:56-69); a name already registered is left
+    as it is."""
+    from .catalog import DatasetCatalog, MetadataCatalog
+
+    try:
+        DatasetCatalog.register(
+            name, lambda: make_synthetic_dataset_dicts(
+                num_images, seed, num_classes=num_classes))
+    except KeyError:
+        return name
+    MetadataCatalog.get(name).update(evaluator_type="coco")
+    return name

@@ -11,8 +11,8 @@ hot path stays on device.
 
 The port's copy of lgd_tpu/evaluation/coco_eval.py, for the bbox task
 only: the greedy matching is the numpy loop (the JAX package's optional g++
-core is not carried over), and the ground truth is handed over as dataset
-dicts (the port has no dataset metadata catalog).
+core is not carried over). The ground truth comes from the catalog by
+``dataset_name``, or as dataset dicts (``gt_dataset``).
 """
 
 from __future__ import annotations
@@ -66,14 +66,31 @@ class COCOEvaluator:
     then computes AP/AR. API mirrors the reference evaluator's
     reset/process/evaluate flow (utils/build.py:435-482)."""
 
-    def __init__(self, gt_dataset: List[dict], num_classes: int = 80,
-                 max_dets: int = MAX_DETS, ar_dets=(1, 10)):
+    def __init__(self, dataset_name: Optional[str] = None,
+                 gt_dataset: Optional[List[dict]] = None,
+                 num_classes: int = 80, max_dets: int = MAX_DETS,
+                 ar_dets=(1, 10)):
         self.num_classes = num_classes
         self.max_dets = max_dets      # per image-category cap (COCO: 100)
         self.ar_dets = tuple(ar_dets)  # extra AR@k rows (besides max_dets)
         self._gt = defaultdict(lambda: defaultdict(list))  # img -> cat -> list
         self._img_ids = set()
-        self.add_gt_dataset(gt_dataset)
+        self._class_names = None
+        self._contig_to_cat_id = None  # contiguous idx -> COCO category_id
+        if dataset_name is not None:
+            from ..data.catalog import MetadataCatalog
+
+            meta = MetadataCatalog.get(dataset_name)
+            self._class_names = meta.get("thing_classes")
+            id_map = meta.get("thing_dataset_id_to_contiguous_id")
+            if id_map:
+                self._contig_to_cat_id = {v: k for k, v in id_map.items()}
+        if gt_dataset is None and dataset_name is not None:
+            from ..data.catalog import DatasetCatalog
+
+            gt_dataset = DatasetCatalog.get(dataset_name)
+        if gt_dataset is not None:
+            self.add_gt_dataset(gt_dataset)
         self.reset()
 
     def add_gt_dataset(self, dataset_dicts: List[dict]):
@@ -165,6 +182,11 @@ class COCOEvaluator:
         n_valid = int((~gt_ignore).sum())
         return scores, det_matched, det_ignored, n_valid
 
+    def _img_eligible(self, img_id, cat) -> bool:
+        """Hook: LVIS federated evaluation skips (image, category) pairs the
+        dataset neither positively nor negatively annotates."""
+        return True
+
     def _accumulate(self, area_rng_name="all",
                     max_dets: Optional[int] = None):
         """AP/AR per (IoU thr, category). ``max_dets`` truncates each
@@ -183,6 +205,8 @@ class COCOEvaluator:
             n_gt = 0
             for img_id in img_ids:
                 if cat not in self._gt[img_id] and cat not in self._dets[img_id]:
+                    continue
+                if not self._img_eligible(img_id, cat):
                     continue
                 key = (img_id, cat, area_rng_name)
                 if key in self._match_cache:
@@ -223,7 +247,7 @@ class COCOEvaluator:
                 ar_per_cat[ti, cat] = rec[-1] if len(rec) else 0.0
         return ap_per_cat, ar_per_cat
 
-    def _evaluate_bbox(self) -> Dict[str, float]:
+    def _evaluate_type(self, iou_type: str) -> Dict[str, float]:
         """Full COCO summarize() metric family: AP/AP50/AP75/APs/m/l,
         AR@{1,10,100} and ARs/m/l (at maxDets=100), plus per-category AP
         ('AP-<class>' keys, detectron2 COCOEvaluator behavior)."""
@@ -258,20 +282,25 @@ class COCOEvaluator:
         for c in range(self.num_classes):
             if np.isnan(per_cat[c]):
                 continue
-            results[f"AP-{c}"] = float(per_cat[c] * 100)
+            cname = (self._class_names[c]
+                     if self._class_names and c < len(self._class_names)
+                     else str(c))
+            results[f"AP-{cname}"] = float(per_cat[c] * 100)
         return results
 
     def coco_results_list(self) -> List[dict]:
         """Detections in official COCO results-json schema (XYWH boxes,
-        contiguous category ids) — the reference COCOEvaluator's
+        dataset category ids) — the reference COCOEvaluator's
         coco_instances_results.json payload, re-scorable by pycocotools."""
         out = []
         for img_id, cats in self._dets.items():
             for cat, dets in cats.items():
+                cat_id = (self._contig_to_cat_id.get(cat, cat)
+                          if self._contig_to_cat_id else cat)
                 for box, score in dets:
                     rec = {
                         "image_id": img_id,
-                        "category_id": int(cat),
+                        "category_id": int(cat_id),
                         "bbox": [round(float(v), 3) for v in box],
                         "score": round(float(score), 5),
                     }
@@ -286,7 +315,7 @@ class COCOEvaluator:
             raise NotImplementedError(
                 f"the port scores boxes only, not {tuple(iou_types)}")
         self._match_cache = {}
-        out = {"bbox": self._evaluate_bbox()}
+        out = {"bbox": self._evaluate_type("bbox")}
         logger.info("COCO bbox results: %s",
                     {k: round(v, 3) for k, v in out["bbox"].items()
                      if not k.startswith("AP-")})
