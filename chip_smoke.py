@@ -125,6 +125,26 @@
    whose AP equals the trained model's. K1a/K1b 5 launches a step, K2 one
    a batch of evaluation. Checkpoint size, save and restore seconds and
    the phase's wall time are printed.
+17. FCOS inference: DistillatorFCOS, R-50 FPN at full width (256-channel
+   p3-p7 with p6/p7 from p5, GroupNorm(32) towers, 80 classes), seeded
+   random weights, bf16 convolutions, through ``do_test`` on the 16-image
+   split at 800x1344 / 1344x800, batch 8: K2 once a batch, 1..100 finite
+   detections per image, COCO metrics; one batch's head outputs decoded
+   again with the plain NMS: equal detection sets; time per batch and
+   images/s.
+18. FCOS LGD training through ``do_train``, checked and timed as in 5
+   (``loss_centerness`` and its '.tea' among the losses; GroupNorm's
+   kernels a family of the profile), K1a/K1b 5 a step; then
+   ``do_test(eval_teacher=True)``.
+19. The float32 card-vs-CPU ``train_forward`` of 7 for the FCOS model.
+20. ATSS inference and training as 17 and 18 (SHIFT_TRAIN_STEPS steps,
+   SHIFT_TIMED_STEPS timed).
+21. POTO inference as 17 (NMS_TYPE normal), its head outputs decoded once
+   more with NMS_TYPE "null" (no kernel launched), and training as 18 with
+   MODEL.POTO.ASSIGNMENT hungarian: scipy on the host, timed per step
+   beside the step time, its total quality on the last step's whole
+   quality matrix held against scipy on that matrix uncompacted.
+   The script's wall time is printed before the kernels' line.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
@@ -1495,6 +1515,12 @@ KERNEL_FAMILIES = (
     ("K3 ROIAlign", ("roi_align_fwd_kernel", "roi_align_bwd_kernel")),
     ("K4 deformable sampling", ("deform_fwd_kernel", "deform_bwd_kernel")),
     ("K2 NMS", ("nms_mask_kernel", "nms_sweep_kernel")),
+    # PyTorch's GroupNorm (the FCOS, ATSS and POTO towers): the statistics,
+    # the fused affine and its elementwise lambdas, and the backward's
+    ("GroupNorm", ("RowwiseMoments", "GroupNorm", "group_norm",
+                   "ComputeFusedParams", "ComputeInternalGradients",
+                   "ComputeBackwardFusedParams",
+                   "Compute1dBackwardFusedParams", "GammaBetaBackward")),
     ("layout NCHW<->NHWC", ("nchwToNhwc", "nhwcToNchw", "AddPadding")),
     ("convolution", ("implicit_gemm", "conv", "fprop", "dgrad", "wgrad",
                      "winograd", "cudnn", "cutlass", "tensorTransform")),
@@ -1906,19 +1932,22 @@ def compare_card_cpu(names, got, want):
             f"{diff:.3e} (scale {scale:.3e})")
 
 
-def phase_card_vs_cpu(device, opts=(), per_run=None, prepare=None):
+def phase_card_vs_cpu(device, opts=(), per_run=None, prepare=None,
+                      make_cfg=smoke_cfg, names=None):
     """The float32 model on the card against the same model on the CPU, on
     a small input, TF32 off: features and head outputs of inference, then
     train_forward's losses and normalizer with a backward (K1a and K1b on
     the card, their plain versions on the CPU). ``opts`` change the
-    R-50 model, whose run launches ``per_run``; ``prepare(model, images,
-    sizes)`` sets the CPU model's weights, which the card's model then
-    loads."""
+    R-50 model of ``make_cfg`` (RetinaNet's by default), whose run
+    launches ``per_run``; ``names`` are those of the head's inputs, its
+    outputs and the losses, RetinaNet's by default; ``prepare(model,
+    images, sizes)`` sets the CPU model's weights, which the card's model
+    then loads."""
     from lgd_tpu_torch.models.distillator import build_model
 
-    cfg = smoke_cfg(["TPU.COMPUTE_DTYPE", "float32",
-                     "MODEL.DISTILLATOR.TEACHER.ADD_CONTEXT_BOX", True,
-                     *opts])
+    cfg = make_cfg(["TPU.COMPUTE_DTYPE", "float32",
+                    "MODEL.DISTILLATOR.TEACHER.ADD_CONTEXT_BOX", True,
+                    *opts])
     cpu = build_model(cfg, dtype=torch.float32, device="cpu", seed=1)
     gpu = build_model(cfg, dtype=torch.float32, device=device, seed=1)
     g = torch.Generator().manual_seed(0)
@@ -1950,8 +1979,10 @@ def phase_card_vs_cpu(device, opts=(), per_run=None, prepare=None):
           f"card train_forward launched {launched}")
     want = outputs(cpu, "cpu")
     check(read_launches() == launched, "the CPU model launched a kernel")
-    compare_card_cpu([*cfg.MODEL.RETINANET.IN_FEATURES, "logits", "deltas",
-                      *RETINANET_LOSSES, "loss_normalizer"], got, want)
+    names = names or [*cfg.MODEL.RETINANET.IN_FEATURES, "logits", "deltas",
+                      *RETINANET_LOSSES]
+    check(len(names) + 1 == len(got), (names, len(got)))
+    compare_card_cpu([*names, "loss_normalizer"], got, want)
 
 
 def phase_rcnn_card_vs_cpu(device):
@@ -2769,6 +2800,220 @@ def phase_real_run(device, card, cfg_opts=()):
 
 
 
+FCOS_TRAIN_STEPS = 4    # FCOS do_train steps with the checks
+FCOS_TIMED_STEPS = 3
+SHIFT_TRAIN_STEPS = 3   # ATSS and POTO do_train steps with the checks
+SHIFT_TIMED_STEPS = 2
+FCOS_LOSSES = tuple(sorted(
+    [k + t for k in ("loss_box_reg", "loss_centerness", "loss_cls")
+     for t in ("", ".tea")] + ["loss_distill"]))
+POTO_LOSSES = tuple(sorted(
+    [k + t for k in ("loss_box_reg", "loss_cls") for t in ("", ".tea")]
+    + ["loss_distill"]))
+# the host assignment's total against scipy on the whole matrix: float32
+# qualities summed in float64, the same optimum
+ASSIGN_TOL = 1e-5
+
+
+def fcos_cfg(arch="DistillatorFCOS", opts=()):
+    """FCOS R-50 FPN at full width, as cvpods' FCOS R-50 FPN config:
+    res3-res5 into a 256-channel FPN whose p6/p7 come from p5, p3-p7 at
+    strides 8-128, 4-conv GroupNorm(32) towers, 80 classes, center sampling
+    at 1.5 strides, GIoU, MAX_INSTANCES 100; ``arch`` DistillatorATSS or
+    DistillatorPOTO swaps the assignment (and POTO's head drops the
+    centerness). bf16 student convolutions, seeded random weights."""
+    from lgd_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_list([
+        "MODEL.META_ARCHITECTURE", arch,
+        "MODEL.RESNETS.DEPTH", 50,
+        "MODEL.RESNETS.OUT_FEATURES", ["res3", "res4", "res5"],
+        "MODEL.FPN.IN_FEATURES", ["res3", "res4", "res5"],
+        # random weights put every probability near the 0.01 prior, under
+        # the default 0.05 threshold: keep them so NMS sees full pools
+        "MODEL.FCOS.SCORE_THRESH_TEST", 0.0,
+        "MODEL.DISTILLATOR.EVAL_TEACHER", False,
+        "DATASETS.TEST", ("synthetic_mini",),
+        "TPU.COMPUTE_DTYPE", "bfloat16",
+        "OUTPUT_DIR", "",
+        *opts,
+    ])
+    return cfg.freeze()
+
+
+def shift_train_cfg(arch, steps, distill_from, opts=()):
+    """The anchor-free LGD training slices."""
+    return fcos_cfg(arch, [*lgd_train_opts(steps, distill_from), *opts])
+
+
+def phase_shift_inference(device, card, arch, what):
+    """An anchor-free distillator (FCOS, ATSS or POTO) at full width
+    through do_test, K2 once per batch; one batch's head outputs decoded
+    again with the plain NMS: equal detection sets; POTO's once more with
+    NMS_TYPE "null": no K2 launch. Returns the path's launches."""
+    from lgd_tpu_torch.engine.trainer import do_test
+    from lgd_tpu_torch.models.distillator import build_model
+    from lgd_tpu_torch.models.heads.poto import poto_inference
+
+    cfg = fcos_cfg(arch)
+    model = build_model(cfg, dtype=torch.bfloat16, device=device, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"model: R-{cfg.MODEL.RESNETS.DEPTH} FPN {what}, {n_params} "
+        f"parameters, {cfg.TPU.COMPUTE_DTYPE} convolutions, GroupNorm towers")
+
+    rec = RecordingModel(model)
+    zero_launches()
+    t0 = time.perf_counter()
+    res = do_test(cfg, rec, device, batch_size=8)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n = len(rec.outputs)
+    check(launches["K2"] > 0, f"{what} inference never launched K2")
+    check(launches == expect_launches({"K2": 1}, n), (launches, n))
+    for dets in rec.outputs:
+        for t in (dets.boxes, dets.scores):
+            check(torch.isfinite(t).all(), "non-finite detections")
+        per_image = dets.valid.sum(dim=1).tolist()
+        check(all(1 <= k <= 100 for k in per_image), per_image)
+        check(dets.boxes.shape[1:] == (100, 4), tuple(dets.boxes.shape))
+    for key in ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR@100"):
+        check(key in res["bbox"], key)
+    log(f"{what} do_test: {n} batches, launches {launches}, AP "
+        f"{res['bbox']['AP']:.4f}, wall {wall:.2f} s = {16 / wall:.2f} "
+        f"images/s incl. host preprocessing and COCO scoring [{card}]")
+
+    # one batch's head outputs through K2 and through the plain NMS
+    images, sizes = eval_batch(cfg, device)
+    with torch.no_grad():
+        shifts = model.shifts(images.shape[-2:], device)
+        _, feats = model.student(images, sizes)
+        pred = model.student.predict(model._head_features(feats))
+        kern = model.infer(pred, shifts, sizes)
+        before = read_launches()
+        with PlainKernels() as plain_run:
+            plain = model.infer(pred, shifts, sizes)
+    check(read_launches() == before, "the plain run launched a kernel")
+    check(len(plain_run.pools) == 1, f"{len(plain_run.pools)} NMS pools")
+    for i in range(images.shape[0]):
+        check(det_set(kern, i) == det_set(plain, i),
+              f"{what} image {i}: K2 and the plain NMS differ")
+    pool = tuple(plain_run.pools[0][0].shape)
+    log(f"one batch ({tuple(images.shape)}): K2 and the plain NMS give "
+        f"equal detection sets on the pool {pool}")
+    if arch == "DistillatorPOTO":
+        null = fcos_cfg(arch, ["MODEL.NMS_TYPE", "null"])
+        zero_launches()
+        dets = poto_inference(null, *pred, shifts.points, shifts.counts,
+                              sizes)
+        check(read_launches() == expect_launches({}, 0),
+              f"NMS_TYPE null launched {read_launches()}")
+        check(bool(dets.valid.all()) and torch.isfinite(dets.scores).all(),
+              "NMS_TYPE null: invalid or non-finite detections")
+        log("POTO with NMS_TYPE null: 100 finite detections per image, no "
+            "kernel launched")
+
+    def infer():
+        model.inference(images, sizes)
+
+    batch_ms = cuda_ms(infer, iters=5)
+    log(f"{what} model.inference, batch {images.shape[0]} at "
+        f"{tuple(images.shape[-2:])}: {batch_ms:.2f} ms = "
+        f"{1000 * images.shape[0] / batch_ms:.2f} images/s [{card}]")
+    del model, rec
+    torch.cuda.empty_cache()
+    return launches
+
+
+class TimedAssignment:
+    """Inside the block POTO's host assignment
+    (``hungarian.max_quality_assignment``, looked up by module attribute at
+    each call) is timed on the host clock from a synchronized device to
+    its result, and the last call's quality matrix and assignment are
+    kept."""
+
+    def __enter__(self):
+        from lgd_tpu_torch.ops import hungarian
+
+        self.saved = hungarian.max_quality_assignment
+        self.ms, self.last = [], None
+
+        def timed(quality, penalty=-1e8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.saved(quality, penalty)
+            torch.cuda.synchronize()
+            self.ms.append(1e3 * (time.perf_counter() - t0))
+            self.last = (quality.clone(), out, penalty)
+            return out
+
+        hungarian.max_quality_assignment = timed
+        return self
+
+    def __exit__(self, *exc):
+        from lgd_tpu_torch.ops import hungarian
+
+        hungarian.max_quality_assignment = self.saved
+
+
+def hold_assignment(quality, assign, penalty):
+    """The assignment's total quality against scipy's
+    ``linear_sum_assignment`` on each image's whole (M, R) matrix, the
+    reference's own call (poto.py:359): masked pairs dropped after. Returns
+    (largest difference, feasible pairs, matrix shape)."""
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+
+    q = quality.double().cpu().numpy()
+    assign = assign.cpu().numpy()
+    worst, pairs = 0.0, 0
+    for b in range(q.shape[0]):
+        rows = np.nonzero(assign[b] >= 0)[0]
+        check(len(set(assign[b][rows])) == len(rows), "a column twice")
+        check((q[b][rows, assign[b][rows]] > penalty / 2).all(),
+              "a masked pair assigned")
+        got = q[b][rows, assign[b][rows]].sum()
+        r, c = linear_sum_assignment(q[b], maximize=True)
+        keep = q[b][r, c] > penalty / 2
+        want = q[b][r[keep], c[keep]].sum()
+        check(keep.sum() == len(rows), (b, int(keep.sum()), len(rows)))
+        worst = max(worst, abs(got - want))
+        pairs += len(rows)
+    check(worst <= ASSIGN_TOL, f"assignment total differs by {worst}")
+    return worst, pairs, tuple(q.shape)
+
+
+def phase_shift_training(device, card, arch, what, steps, timed,
+                         distill_from):
+    """An anchor-free LGD training slice through ``phase_train`` (K1a and
+    K1b 5 times a step, no K2), POTO's host assignment timed per step and
+    held against scipy on its last step's whole quality matrix. Returns
+    (model, the do_train run's launches)."""
+    cfg = shift_train_cfg(arch, steps, distill_from)
+    keys = POTO_LOSSES if arch == "DistillatorPOTO" else FCOS_LOSSES
+    with TimedAssignment() as assignment:
+        model, launches = phase_train(device, card, cfg, what, steps, timed,
+                                      distill_from, {"K1a": 5, "K1b": 5},
+                                      keys)
+    if arch == "DistillatorPOTO":
+        import statistics
+
+        # one call a step: do_train's, one warm-up, the timed and the two
+        # profiled steps; the first call pays scipy's import
+        check(len(assignment.ms) == steps + 1 + timed + 2,
+              f"{len(assignment.ms)} assignments")
+        ms = assignment.ms[1:]
+        worst, pairs, shape = hold_assignment(*assignment.last)
+        log(f"POTO host assignment ({cfg.MODEL.POTO.ASSIGNMENT}, scipy on "
+            f"the feasible entries): median {statistics.median(ms):.2f} ms, "
+            f"mean {statistics.mean(ms):.2f} ms, max {max(ms):.2f} ms per "
+            f"step over {len(ms)} steps (first {assignment.ms[0]:.2f} ms); "
+            f"its total on the last step's quality {shape} within "
+            f"{worst:.3e} of scipy on the whole matrix ({pairs} pairs) "
+            f"[{card}]")
+    return model, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -2819,6 +3064,29 @@ def main():
     phase_overfit(device, card)
     paths["real run"], paths["real run, resumed"] = phase_real_run(device,
                                                                    card)
+    paths["FCOS inference"] = phase_shift_inference(
+        device, card, "DistillatorFCOS", "FCOS")
+    model, paths["FCOS training"] = phase_shift_training(
+        device, card, "DistillatorFCOS", "FCOS", FCOS_TRAIN_STEPS,
+        FCOS_TIMED_STEPS, 3)
+    phase_eval_teacher(model, shift_train_cfg(
+        "DistillatorFCOS", FCOS_TRAIN_STEPS, 3), device, card,
+        {"K1a": 5, "K2": 1})
+    del model
+    torch.cuda.empty_cache()
+    phase_card_vs_cpu(
+        device, make_cfg=lambda opts: fcos_cfg("DistillatorFCOS", opts),
+        names=["p3", "p4", "p5", "p6", "p7", "logits", "deltas",
+               "centerness", *FCOS_LOSSES])
+    for arch, what in (("DistillatorATSS", "ATSS"),
+                       ("DistillatorPOTO", "POTO")):
+        paths[f"{what} inference"] = phase_shift_inference(device, card,
+                                                           arch, what)
+        model, paths[f"{what} training"] = phase_shift_training(
+            device, card, arch, what, SHIFT_TRAIN_STEPS, SHIFT_TIMED_STEPS,
+            2)
+        del model
+        torch.cuda.empty_cache()
     for name, launches in paths.items():
         log(f"launches on the {name} path: {launches}")
     for name in records:

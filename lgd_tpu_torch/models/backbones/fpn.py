@@ -1,5 +1,5 @@
-"""Feature Pyramid Network with the RetinaNet p6/p7 top or the R-CNN
-max-pool p6 (port of lgd_tpu/models/backbones/fpn.py), NCHW. Submodule
+"""Feature Pyramid Network with the p6/p7 top (RetinaNet, FCOS) or the
+R-CNN max-pool p6 (port of lgd_tpu/models/backbones/fpn.py), NCHW. Submodule
 names match the flax module: ``lateral_<in>``, ``output_p<l>``, ``top_p6``,
 ``top_p7``."""
 
@@ -76,18 +76,23 @@ class FPN(nn.Module):
         return outputs
 
 
-def build_fpn(cfg, top_block: str, dtype: torch.dtype) -> FPN:
+def build_fpn(cfg, top_block: str, dtype: torch.dtype,
+              top_block_in_feature: str = "res5") -> FPN:
     """The FPN over the ResNet trunk's MODEL.FPN.IN_FEATURES; the p6p7 top
-    is fed from res5."""
+    is fed from ``top_block_in_feature``: res5 (RetinaNet) or p5 (the
+    cvpods FCOS, ATSS and POTO, lgd_tpu/models/heads/fcos.py:122-125)."""
     in_feats = tuple(cfg.MODEL.FPN.IN_FEATURES)
     res2 = cfg.MODEL.RESNETS.RES2_OUT_CHANNELS
+    out_channels = cfg.MODEL.FPN.OUT_CHANNELS
     channels = {f"res{i + 2}": res2 * 2 ** i for i in range(4)}
+    channels.update({f"p{i}": out_channels for i in range(2, 8)})
     return FPN(in_features=in_feats,
                in_channels=[channels[f] for f in in_feats],
                in_strides=feature_strides(in_feats),
-               out_channels=cfg.MODEL.FPN.OUT_CHANNELS, top_block=top_block,
-               top_block_in_feature="res5",
-               top_block_in_channels=channels["res5"], dtype=dtype)
+               out_channels=out_channels, top_block=top_block,
+               top_block_in_feature=top_block_in_feature,
+               top_block_in_channels=channels[top_block_in_feature],
+               dtype=dtype)
 
 
 def init_trunk_(student: nn.Module, generator: torch.Generator):

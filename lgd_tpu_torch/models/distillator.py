@@ -1,5 +1,6 @@
 """Distillator meta-architectures: student + DynamicTeacher + adapter (port
-of lgd_tpu/models/distillator.py; RetinaNet and Faster R-CNN so far).
+of lgd_tpu/models/distillator.py: RetinaNet, Faster R-CNN, FCOS, ATSS and
+POTO).
 
 ``train_forward`` computes the whole LGD loss dict of one step:
 
@@ -37,6 +38,16 @@ from .heads.retinanet import (
     retinanet_losses,
 )
 from .backbones.fpn import init_trunk_
+from .heads.atss import ATSSCT, atss_ground_truth, atss_inference, atss_losses
+from .heads.fcos import (
+    FCOSCT,
+    ShiftCache,
+    fcos_ground_truth,
+    fcos_inference,
+    fcos_losses,
+    init_fcos_,
+)
+from .heads.poto import POTOCT, poto_ground_truth, poto_inference, poto_losses
 from .layers import Conv2d
 from .lgd.adapters import build_adapter
 from .lgd.dynamic_teacher import DynamicTeacher
@@ -272,3 +283,118 @@ class DistillatorGeneralizedRCNN(BaseDistillator):
                 raise ValueError("eval_teacher needs the GT annotations")
             feats, _, _ = self.teacher(gt, feats, padded_hw)
         return self.student.infer_boxes(feats, image_sizes)
+
+
+class _ShiftBasedDistillator(BaseDistillator):
+    """What the anchor-free distillators share (reference
+    distillator.py:201-494): the student's head reads
+    MODEL.FCOS.IN_FEATURES at the shift points of the canvas, the GT
+    targets come from the student's pass and serve the teacher's pass too,
+    and the loss normalizer passes through unchanged. Subclasses give the
+    assignment (``ground_truth``), the losses and the inference."""
+
+    student_class = FCOSCT
+
+    def __init__(self, cfg, dtype: torch.dtype = torch.bfloat16):
+        super().__init__(cfg, self.student_class(cfg, dtype=dtype), dtype)
+        self.num_classes = cfg.MODEL.FCOS.NUM_CLASSES
+        self.shifts = ShiftCache(cfg)
+
+    def init_student_(self, generator: torch.Generator):
+        init_fcos_(self.student, generator)
+
+    def _head_features(self, feats: Dict[str, torch.Tensor]):
+        return [feats[f] for f in self.cfg.MODEL.FCOS.IN_FEATURES]
+
+    def train_forward(self, images: torch.Tensor, image_sizes: torch.Tensor,
+                      gt: BatchedInstances, distill_flag: float,
+                      loss_normalizer: torch.Tensor, uniforms=None):
+        """One LGD training forward, as DistillatorRetinaNet's: the student
+        head scores the student's and the teacher's pyramids in two
+        separate passes, both against the targets of the student's pass.
+        Nothing is sampled: ``uniforms`` is unused."""
+        padded_hw = tuple(images.shape[-2:])
+        shifts = self.shifts(padded_hw, images.device)
+        _, feats = self.student(images, image_sizes)
+        tea_feats, _, _ = self.teacher(gt, feats, padded_hw)
+        pred = self.student.predict(self._head_features(feats))
+        pred_tea = self.student.predict(self._head_features(tea_feats))
+        targets = self.ground_truth(shifts, gt, pred)
+        losses = self.losses(targets, pred)
+        losses.update({k + ".tea": v for k, v in
+                       self.losses(targets, pred_tea).items()})
+        losses["loss_distill"] = self.distill_loss(feats, tea_feats,
+                                                   distill_flag)
+        return losses, loss_normalizer
+
+    @torch.no_grad()
+    def inference(self, images: torch.Tensor, image_sizes: torch.Tensor,
+                  gt: Optional[BatchedInstances] = None,
+                  eval_teacher: bool = False) -> BatchedDetections:
+        """Student features, with ``eval_teacher`` replaced by the
+        teacher's, through the student head and the detector's inference.
+        images (B, 3, H, W) float32 BGR on the model's device; image_sizes
+        (B, 2) int (h, w)."""
+        padded_hw = tuple(images.shape[-2:])
+        shifts = self.shifts(padded_hw, images.device)
+        _, feats = self.student(images, image_sizes)
+        if eval_teacher:
+            if gt is None:
+                raise ValueError("eval_teacher needs the GT annotations")
+            feats, _, _ = self.teacher(gt, feats, padded_hw)
+        pred = self.student.predict(self._head_features(feats))
+        return self.infer(pred, shifts, image_sizes)
+
+
+@register_meta_arch("DistillatorFCOS")
+class DistillatorFCOS(_ShiftBasedDistillator):
+    """reference models/distillator.py:201-297."""
+
+    def ground_truth(self, shifts, gt, pred):
+        return fcos_ground_truth(self.cfg, shifts.points, shifts.strides,
+                                 shifts.soi_lo, shifts.soi_hi, gt)
+
+    def losses(self, targets, pred):
+        return fcos_losses(self.cfg, *targets, *pred)
+
+    def infer(self, pred, shifts, image_sizes):
+        return fcos_inference(self.cfg, *pred, shifts.points, shifts.counts,
+                              image_sizes)
+
+
+@register_meta_arch("DistillatorATSS")
+class DistillatorATSS(_ShiftBasedDistillator):
+    """reference models/distillator.py:397-494."""
+
+    student_class = ATSSCT
+
+    def ground_truth(self, shifts, gt, pred):
+        return atss_ground_truth(self.cfg, shifts.points, shifts.counts,
+                                 shifts.strides, gt)
+
+    def losses(self, targets, pred):
+        return atss_losses(self.cfg, *targets, *pred)
+
+    def infer(self, pred, shifts, image_sizes):
+        return atss_inference(self.cfg, *pred, shifts.points, shifts.counts,
+                              image_sizes)
+
+
+@register_meta_arch("DistillatorPOTO")
+class DistillatorPOTO(_ShiftBasedDistillator):
+    """reference models/distillator.py:299-395: the one-to-one assignment
+    uses the student's own (detached) predictions, and its targets serve
+    the teacher's pass too, as the reference's gt_targets."""
+
+    student_class = POTOCT
+
+    def ground_truth(self, shifts, gt, pred):
+        return poto_ground_truth(self.cfg, shifts.points, shifts.strides, gt,
+                                 *pred)
+
+    def losses(self, targets, pred):
+        return poto_losses(self.cfg, *targets, *pred)
+
+    def infer(self, pred, shifts, image_sizes):
+        return poto_inference(self.cfg, *pred, shifts.points, shifts.counts,
+                              image_sizes)

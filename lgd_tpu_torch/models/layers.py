@@ -64,15 +64,48 @@ class FrozenBatchNorm(nn.Module):
         return x * w.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
 
 
+class GroupNorm32(nn.Module):
+    """GroupNorm(32, eps 1e-5) as flax's ``nn.GroupNorm(dtype=float32)``
+    computes it in the FCOS towers (lgd_tpu/models/heads/fcos.py:62-67):
+    the input goes up to float32, is normalized there with the float32
+    affine parameters ``scale`` and ``bias`` (flax's names), and goes back
+    down to the input's dtype. flax takes the variance as E[x^2] - E[x]^2,
+    torch in two passes; the two agree to float32 rounding where the mean
+    is small against the spread, as it is after a convolution."""
+
+    def __init__(self, num_features: int, num_groups: int = 32,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.scale,
+                            self.bias, self.eps).to(x.dtype)
+
+
+class Scale(nn.Module):
+    """A learnable float32 scalar ``scale`` that multiplies its input in the
+    input's dtype (lgd_tpu/models/layers.py:103-113; reference
+    thirdparty_heads/scale.py)."""
+
+    def __init__(self, init_value: float = 1.0):
+        super().__init__()
+        self.scale = nn.Parameter(torch.tensor(float(init_value)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.scale.to(x.dtype)
+
+
 def get_norm(norm: str, num_features: int) -> Optional[nn.Module]:
     if norm in (None, "", "none"):
         return None
     if norm == "FrozenBN":
         return FrozenBatchNorm(num_features)
     if norm == "GN":
-        raise NotImplementedError(
-            "GroupNorm comes with the FCOS/ATSS/POTO slice (ROADMAP.md, queue "
-            "item 8)")
+        return GroupNorm32(num_features)
     raise ValueError(f"Unknown norm: {norm}")
 
 

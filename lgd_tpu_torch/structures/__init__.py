@@ -1,7 +1,9 @@
 from . import boxes
 from .boxes import (
     Box2BoxTransform,
+    Shift2BoxTransform,
     area,
+    centers,
     clip,
     nonempty,
     pairwise_intersection,
@@ -12,7 +14,9 @@ from .instances import BatchedDetections, BatchedInstances
 __all__ = [
     "boxes",
     "Box2BoxTransform",
+    "Shift2BoxTransform",
     "area",
+    "centers",
     "clip",
     "nonempty",
     "pairwise_intersection",

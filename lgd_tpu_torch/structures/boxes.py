@@ -43,6 +43,12 @@ def nonempty(boxes: torch.Tensor, threshold: float = 0.0) -> torch.Tensor:
     return (w > threshold) & (h > threshold)
 
 
+def centers(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 4) -> (..., 2) box centers (x, y)."""
+    return torch.stack([(boxes[..., 0] + boxes[..., 2]) * 0.5,
+                        (boxes[..., 1] + boxes[..., 3]) * 0.5], dim=-1)
+
+
 def pairwise_intersection(boxes1: torch.Tensor,
                           boxes2: torch.Tensor) -> torch.Tensor:
     """(..., N, 4) x (..., M, 4) -> (..., N, M) intersection areas."""
@@ -116,3 +122,30 @@ class Box2BoxTransform:
         return torch.stack([pred_cx - 0.5 * pred_w, pred_cy - 0.5 * pred_h,
                             pred_cx + 0.5 * pred_w, pred_cy + 0.5 * pred_h],
                            dim=-1)
+
+
+class Shift2BoxTransform:
+    """(l, t, r, b) distances between shift points and box edges, times the
+    weights (cvpods Shift2BoxTransform, used by FCOS, ATSS and POTO).
+    Both methods broadcast their arguments against each other."""
+
+    def __init__(self, weights=(1.0, 1.0, 1.0, 1.0)):
+        self.weights = tuple(float(x) for x in weights)
+
+    def _weights(self, like: torch.Tensor) -> torch.Tensor:
+        return torch.tensor(self.weights, dtype=torch.float32,
+                            device=like.device)
+
+    def get_deltas(self, shifts: torch.Tensor,
+                   boxes: torch.Tensor) -> torch.Tensor:
+        """shifts (..., 2) points, boxes (..., 4) -> (..., 4) ltrb."""
+        shifts, lo = torch.broadcast_tensors(shifts, boxes[..., :2])
+        hi = boxes[..., 2:].expand_as(lo)
+        return torch.cat([shifts - lo, hi - shifts], dim=-1) * self._weights(
+            boxes)
+
+    def apply_deltas(self, deltas: torch.Tensor,
+                     shifts: torch.Tensor) -> torch.Tensor:
+        """deltas (..., 4) ltrb, shifts (..., 2) -> boxes (..., 4)."""
+        d = deltas / self._weights(deltas)
+        return torch.cat([shifts - d[..., :2], shifts + d[..., 2:]], dim=-1)

@@ -12,6 +12,8 @@ name, and only the leaves change:
 - ``params/.../kernel`` of a Dense layer (in, out) -> ``....weight`` of an
   ``nn.Linear`` (out, in);
 - ``params/.../bias`` -> ``....bias``;
+- ``params/.../scale`` of a GroupNorm (C,) or of a ``Scale`` (a 0-d
+  array) -> ``....scale``;
 - ``frozen/.../{scale,bias,mean,var}`` -> the FrozenBatchNorm buffers.
 
 One weight also changes the order of its rows: the R-CNN box head's
@@ -47,13 +49,15 @@ def flatten_variables(variables: Mapping, prefix: str = "") -> Dict[str, np.ndar
 
 
 def torch_key(flax_key: str) -> str:
-    """``params/student/fpn/top_p6/kernel`` -> ``student.fpn.top_p6.weight``."""
+    """``params/student/fpn/top_p6/kernel`` -> ``student.fpn.top_p6.weight``;
+    a ResNet norm's GroupNorm, flax's ``<norm>/GroupNorm_0``, is the port's
+    ``<norm>`` itself."""
     coll, *path, leaf = flax_key.split("/")
-    if coll == "params" and leaf in ("kernel", "bias"):
+    if coll == "params" and leaf in ("kernel", "bias", "scale"):
         leaf = "weight" if leaf == "kernel" else leaf
     elif not (coll == "frozen" and leaf in _FROZEN_LEAVES):
         raise KeyError(f"no port counterpart for {flax_key!r}")
-    return ".".join(path + [leaf])
+    return ".".join([p for p in path if p != "GroupNorm_0"] + [leaf])
 
 
 def _kernel_axes(flax_key: str, ndim: int):

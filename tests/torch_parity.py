@@ -95,7 +95,7 @@ def random_weights(shapes, seed=0):
             v = rng.rand(*shape) + 0.5
         else:  # bias, mean
             v = rng.randn(*shape) * 0.1
-        out[key] = v.astype(np.float32)
+        out[key] = np.asarray(v, np.float32)  # a Scale's is a 0-d array
     return out
 
 
