@@ -144,6 +144,21 @@
    MODEL.POTO.ASSIGNMENT hungarian: scipy on the host, timed per step
    beside the step time, its total quality on the last step's whole
    quality matrix held against scipy on that matrix uncompacted.
+22. Mask R-CNN R-50 FPN (detectron2's mask_rcnn_R_50_FPN_1x at full
+   width: the 4-conv mask head over ROIAlign at 14x14, 28x28 masks)
+   through ``do_test`` at batch 8: K2 twice and K3 twice per batch,
+   finite detections and mask probabilities, bbox and segm metrics; one
+   batch again with the plain NMS: equal detection sets and masks; K3 at
+   14x14 held in bf16 and float32 on that batch's own mask ROIs and
+   timed.
+23. Mask R-CNN LGD training with the LOAD_LABELMAP seg-mask teacher
+   through ``do_train``, checked and timed as in 5, K3 forward and
+   backward 4 each per step; K3 at 14x14 held forward and backward and
+   timed on the training path's own mask ROIs (the student's bf16 and
+   the teacher's float32 levels); then ``do_test(eval_teacher=True)``,
+   bbox and segm.
+24. The float32 card-vs-CPU ``train_forward`` of 10 for Mask R-CNN, with
+   loss_mask and loss_mask.tea.
    The script's wall time is printed before the kernels' line.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -958,6 +973,48 @@ def hold_roi(feats, index, coords, out, grad, what):
     return got, got_g, err_f, err_b
 
 
+def time_k3(feats, index, coords, out, grad, what, card):
+    """K3 held against its plain version on these inputs (``hold_roi``),
+    then its forward and, given a pooled gradient, its backward timed
+    beside the plain version, with their bounds. Returns the largest
+    absolute errors of the forward and the backward, and the forward's
+    and the backward's timing records (the backward's None without a
+    gradient)."""
+    from lgd_tpu_torch.ops import roi_align as RA
+
+    with NoTF32():
+        _, _, e_f, e_b = hold_roi(feats, index, coords, out, grad, what)
+    f_ms = cuda_ms(lambda: RA.roi_align_fwd(feats, index, coords, out), 20, 3)
+    f_plain = cuda_ms(lambda: RA.multilevel_roi_align_reference(
+        feats, index, coords, out), 2, 1)
+    f_bound, f_by = roi_bound(feats, index, coords, out,
+                              feats[0].element_size(), forward=True)
+    records = [{"ms": f_ms, "plain_ms": f_plain, "bound_ms": f_bound,
+                "bound_by": f_by, "library_ms": None}, None]
+    valid = int((index[:, 1] >= 0).sum())
+    line = (f"K3 at {out}x{out}, {what}: {index.shape[0]} ROIs ({valid} "
+            f"valid) of {tuple(feats[0].shape)}-p5 {feats[0].dtype}: forward "
+            f"max abs err {e_f:.3e}, kernel {f_ms:.4f} ms, plain "
+            f"{f_plain:.4f} ms, bound {f_bound:.6f} ms ({f_by})")
+    if grad is not None:
+        b_ms = cuda_ms(lambda: RA.roi_align_bwd(grad, index, coords, feats),
+                       20, 3)
+        leaves = [f.detach().requires_grad_() for f in feats]
+        pooled = RA.multilevel_roi_align_reference(leaves, index, coords, out)
+        b_plain = cuda_ms(lambda: torch.autograd.grad(
+            pooled, leaves, grad, retain_graph=True), 2, 1)
+        del pooled, leaves
+        b_bound, b_by = roi_bound(feats, index, coords, out,
+                                  grad.element_size(), forward=False)
+        records[1] = {"ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound,
+                      "bound_by": b_by, "library_ms": None}
+        line += (f"; backward max abs err {e_b:.3e}, kernel {b_ms:.4f} ms, "
+                 f"plain (autograd backward) {b_plain:.4f} ms, bound "
+                 f"{b_bound:.6f} ms ({b_by})")
+    log(line + f" [{card}]")
+    return e_f, e_b, *records
+
+
 def check_roi_case(B, C, canvas, n_random, dtype, device, out=7):
     """``hold_roi`` on the adversarial ROIs of ``roi_inputs``; invalid ROIs
     pool zeros and the all-invalid image gets no gradient. Returns the
@@ -1015,45 +1072,15 @@ def phase_roi_align(device, card):
                               ("inference", 8, 1000, torch.bfloat16)):
         feats, boxes, valid = proposal_inputs(B, P, dtype, device, seed=P)
         index, coords = RA.roi_geometry(boxes, valid, FPN_STRIDES, out, 2)
-        training = what.startswith("training")
         grad = (torch.randn(index.shape[0], feats[0].shape[1], out, out,
-                            device=device, dtype=dtype) if training else None)
-        with NoTF32():
-            _, _, e_f, e_b = hold_roi(feats, index, coords, out, grad, what)
+                            device=device, dtype=dtype)
+                if what.startswith("training") else None)
+        e_f, e_b, f_rec, b_rec = time_k3(feats, index, coords, out, grad,
+                                         what, card)
         slice_err_f, slice_err_b = max(slice_err_f, e_f), max(slice_err_b,
                                                               e_b)
-        f_ms = cuda_ms(lambda: RA.roi_align_fwd(feats, index, coords, out),
-                       20, 3)
-        f_plain = cuda_ms(lambda: RA.multilevel_roi_align_reference(
-            feats, index, coords, out), 2, 1)
-        f_bound, f_by = roi_bound(feats, index, coords, out,
-                                  feats[0].element_size(), forward=True)
-        line = (f"K3 forward, {what}: {index.shape[0]} ROIs of "
-                f"{tuple(feats[0].shape)}"
-                f"-p5 {dtype}: max abs err {e_f:.3e}, kernel {f_ms:.4f} ms, "
-                f"plain {f_plain:.4f} ms, bound {f_bound:.6f} ms ({f_by})")
-        if training:
-            b_ms = cuda_ms(lambda: RA.roi_align_bwd(grad, index, coords,
-                                                    feats), 20, 3)
-            leaves = [f.detach().requires_grad_() for f in feats]
-            pooled = RA.multilevel_roi_align_reference(leaves, index, coords,
-                                                       out)
-            b_plain = cuda_ms(lambda: torch.autograd.grad(
-                pooled, leaves, grad, retain_graph=True), 2, 1)
-            del pooled, leaves
-            b_bound, b_by = roi_bound(feats, index, coords, out,
-                                      grad.element_size(), forward=False)
-            line += (f"; backward: max abs err {e_b:.3e}, kernel {b_ms:.4f} "
-                     f"ms, plain (autograd backward) {b_plain:.4f} ms, bound "
-                     f"{b_bound:.6f} ms ({b_by})")
-            if "student" in what:  # the kernel line's shapes
-                records = ({"ms": f_ms, "plain_ms": f_plain,
-                            "bound_ms": f_bound, "bound_by": f_by,
-                            "library_ms": None},
-                           {"ms": b_ms, "plain_ms": b_plain,
-                            "bound_ms": b_bound, "bound_by": b_by,
-                            "library_ms": None})
-        log(line + f" [{card}]")
+        if "student" in what:  # the kernel line's shapes
+            records = (f_rec, b_rec)
         del feats, grad
         torch.cuda.empty_cache()
     records[0]["max_abs_err"] = slice_err_f
@@ -1735,13 +1762,18 @@ def phase_eval_teacher(model, cfg, device, card, per_batch):
     launches = read_launches()
     check(launches == expect_launches(per_batch, len(rec.outputs)),
           (launches, len(rec.outputs)))
-    for dets in rec.outputs:
-        check(torch.isfinite(dets.scores).all(), "non-finite detections")
-    for key in ("AP", "AP50", "AP75", "AR@100"):
-        check(key in res["bbox"] and math.isfinite(res["bbox"][key]), key)
+    for out in rec.outputs:
+        for t in out if isinstance(out, tuple) else (out,):
+            t = t.scores if hasattr(t, "scores") else t
+            check(torch.isfinite(t).all(), "non-finite detections or masks")
+    types = ("bbox", "segm") if cfg.MODEL.MASK_ON else ("bbox",)
+    for t in types:
+        for key in ("AP", "AP50", "AP75", "AR@100"):
+            check(key in res[t] and math.isfinite(res[t][key]), (t, key))
     log(f"do_test(eval_teacher=True): {len(rec.outputs)} batches, launches "
-        f"{launches}, AP {res['bbox']['AP']:.4f}, AP50 "
-        f"{res['bbox']['AP50']:.4f}, wall {wall:.2f} s [{card}]")
+        f"{launches}, " + ", ".join(
+            f"{t} AP {res[t]['AP']:.4f} AP50 {res[t]['AP50']:.4f}"
+            for t in types) + f", wall {wall:.2f} s [{card}]")
     return launches
 
 
@@ -1985,29 +2017,39 @@ def phase_card_vs_cpu(device, opts=(), per_run=None, prepare=None,
     compare_card_cpu([*names, "loss_normalizer"], got, want)
 
 
-def phase_rcnn_card_vs_cpu(device):
+def phase_rcnn_card_vs_cpu(device, make_cfg=rcnn_cfg, loss_keys=None,
+                           per_run=None, make_gt=card_vs_cpu_gt,
+                           prepare=None):
     """The float32 R-CNN model on the card against the same model on the
     CPU, on a small input, TF32 off, with the same uniforms: the FPN
-    levels, the RPN's outputs, and train_forward's nine losses and
-    normalizer with a backward (K1a/K1b, K2 and K3 on the card, their plain
-    versions on the CPU). Smaller proposal pools than the slice's: the
-    order of near-equal proposal scores decides which uniform each
-    proposal draws, and a large pool on a 128x160 input holds near-ties
-    that rounding can reorder."""
+    levels, the RPN's outputs, and train_forward's losses (``loss_keys``,
+    the nine of Faster R-CNN by default) and normalizer with a backward
+    (K1a/K1b, K2 and K3 on the card, ``per_run`` launches, their plain
+    versions on the CPU). ``make_cfg`` and ``make_gt(cfg)`` give the model
+    and its GT (Mask R-CNN's carries masks); ``prepare(model)`` sets the
+    CPU model's weights, which the card's model then loads. Smaller
+    proposal pools than
+    the slice's: the order of near-equal proposal scores decides which
+    uniform each proposal draws, and a large pool on a 128x160 input holds
+    near-ties that rounding can reorder."""
     from lgd_tpu_torch.engine.train_step import draw_uniforms
     from lgd_tpu_torch.models.distillator import build_model
 
-    cfg = rcnn_cfg(["TPU.COMPUTE_DTYPE", "float32",
+    loss_keys = loss_keys or RCNN_LOSSES
+    cfg = make_cfg(["TPU.COMPUTE_DTYPE", "float32",
                     "MODEL.DISTILLATOR.TEACHER.ADD_CONTEXT_BOX", True,
                     "MODEL.RPN.PRE_NMS_TOPK_TRAIN", 200,
                     "MODEL.RPN.POST_NMS_TOPK_TRAIN", 100,
                     "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", 64])
     cpu = build_model(cfg, dtype=torch.float32, device="cpu", seed=1)
     gpu = build_model(cfg, dtype=torch.float32, device=device, seed=1)
+    if prepare is not None:
+        prepare(cpu)
+        gpu.load_state_dict(cpu.state_dict())
     g = torch.Generator().manual_seed(0)
     images = torch.rand(2, 3, 128, 160, generator=g) * 255
     sizes = torch.tensor([[128, 160], [100, 120]])
-    gt = card_vs_cpu_gt(cfg)
+    gt = make_gt(cfg)
     uniforms = draw_uniforms(cpu.sampling_shapes(2, (128, 160),
                                                  gt.boxes.shape[1]),
                              torch.Generator().manual_seed(1), "cpu")
@@ -2024,7 +2066,7 @@ def phase_rcnn_card_vs_cpu(device):
                                            gt.to(dev), 1.0,
                                            torch.tensor(100.0, device=dev),
                                            uniforms=u)
-        check(tuple(sorted(losses)) == RCNN_LOSSES, sorted(losses))
+        check(tuple(sorted(losses)) == loss_keys, sorted(losses))
         sum(losses[k] for k in sorted(losses)).backward()
         out += [losses[k].detach().cpu() for k in sorted(losses)]
         return out + [norm.cpu()]
@@ -2034,13 +2076,279 @@ def phase_rcnn_card_vs_cpu(device):
         got = outputs(gpu, device)
     torch.cuda.synchronize()
     launched = read_launches()
-    check(launched == expect_launches({"K1a": 5, "K1b": 5, "K2": 2,
-                                       "K3 forward": 2, "K3 backward": 2}, 1),
+    check(launched == expect_launches(per_run or {
+        "K1a": 5, "K1b": 5, "K2": 2, "K3 forward": 2, "K3 backward": 2}, 1),
           f"card train_forward launched {launched}")
     want = outputs(cpu, "cpu")
     check(read_launches() == launched, "the CPU model launched a kernel")
-    compare_card_cpu([*levels, "rpn logits", "rpn deltas", *RCNN_LOSSES,
+    compare_card_cpu([*levels, "rpn logits", "rpn deltas", *loss_keys,
                       "loss_normalizer"], got, want)
+
+
+MASK_LOSSES = tuple(sorted([*RCNN_LOSSES, "loss_mask", "loss_mask.tea"]))
+MASK_TRAIN_STEPS = 4   # Mask R-CNN do_train steps with the checks
+MASK_TIMED_STEPS = 3
+MASK_OUT = 14          # the mask head's ROIAlign bins per side
+
+
+def mask_rcnn_cfg(opts=()):
+    """Mask R-CNN R-50 FPN LGD at full width, as detectron2's public
+    configs/COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml on
+    Base-RCNN-FPN.yaml (``rcnn_cfg``): MASK_ON with the 4-conv 256-wide
+    mask head over ROIAlignV2 at 14x14 with adaptive sampling, 28x28 mask
+    logits per class; the reference's LGD Mask R-CNN recipe
+    (LOAD_LABELMAP): the teacher's inside masks from the GT masks
+    rasterized at stride 8, and 49 mask values in each label descriptor;
+    mask targets from 56x56 GT-frame crops."""
+    return rcnn_cfg(["MODEL.MASK_ON", True,
+                     "MODEL.ROI_MASK_HEAD.NUM_CONV", 4,
+                     "MODEL.ROI_MASK_HEAD.CONV_DIM", 256,
+                     "MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION", MASK_OUT,
+                     "MODEL.ROI_MASK_HEAD.POOLER_SAMPLING_RATIO", 0,
+                     "MODEL.DISTILLATOR.LABEL_ENCODER.LOAD_LABELMAP", True,
+                     "TPU.SEGMASK_STRIDE", 8, "TPU.MASK_CROP_SIZE", 56,
+                     *opts])
+
+
+def mask_train_cfg(opts=()):
+    """The Mask R-CNN training slice: distillation from step 2."""
+    return mask_rcnn_cfg([*lgd_train_opts(MASK_TRAIN_STEPS, 2), *opts])
+
+
+def mask_card_vs_cpu_gt(cfg):
+    """Two images' GT with masks for the 128x160 card-vs-CPU input, through
+    the port's mapper and batch packing: star-shaped polygons and a
+    rectangle in the first image, one polygon in the second."""
+    import numpy as np
+
+    from lgd_tpu_torch.data.dataset_mapper import DatasetMapper
+    from lgd_tpu_torch.data.loader import labelmap_stride, pack_batch
+
+    def star(cx, cy, r):
+        ang = np.linspace(0, 2 * np.pi, 12, endpoint=False)
+        rad = r * (0.6 + 0.4 * np.cos(3 * ang) ** 2)
+        return np.stack([cx + rad * np.cos(ang), cy + rad * np.sin(ang)], 1)
+
+    polys = ([star(50, 45, 30), star(110, 80, 25),
+              np.asarray([[10.0, 90.0], [60.0, 90.0], [60.0, 120.0],
+                          [10.0, 120.0]])], [star(70, 50, 35)])
+    dicts = []
+    for i, (ps, (h, w)) in enumerate(zip(polys, ((128, 160), (100, 120)))):
+        annos = [{"bbox": [*p.min(0), *(p.max(0) - p.min(0))],
+                  "category_id": 3 + 38 * j, "iscrowd": 0,
+                  "segmentation": [p.reshape(-1).tolist()]}
+                 for j, p in enumerate(ps)]
+        dicts.append({"image": np.zeros((h, w, 3), np.float32),
+                      "height": h, "width": w, "image_id": i,
+                      "annotations": annos})
+    unscaled = cfg.clone()
+    unscaled.defrost()
+    unscaled.merge_from_list(["INPUT.MIN_SIZE_TRAIN", (128,),
+                              "INPUT.MAX_SIZE_TRAIN", 160,
+                              "INPUT.RANDOM_FLIP", "none"])
+    mapper = DatasetMapper(unscaled, is_train=True)
+    rng = np.random.RandomState(0)
+    samples = [mapper(d, rng) for d in dicts]
+    return pack_batch(samples, (128, 160), cfg.TPU.MAX_INSTANCES,
+                      labelmap_stride(cfg))["gt"]
+
+
+class CaptureK3Backward:
+    """Inside the block, keeps the inputs of the ``count`` K3 backward
+    calls at ``out`` bins that follow the first ``after`` such calls, in
+    ``inputs`` (a list of (grad, index, coords, *levels)), copied to the
+    host, as ``CaptureK4Backward`` does for K4."""
+
+    def __init__(self, out, after, count):
+        self.out, self.after, self.count = out, after, count
+        self.calls, self.inputs = 0, []
+
+    def __enter__(self):
+        from lgd_tpu_torch.ops import roi_align as RA
+
+        self.saved = kernel = RA.roi_align_bwd
+
+        def capture(grad, index, coords, features):
+            if grad.shape[-1] == self.out:
+                self.calls += 1
+                if self.after < self.calls <= self.after + self.count:
+                    self.inputs.append(tuple(
+                        t.detach().cpu() for t in (grad, index, coords,
+                                                   *features)))
+            return kernel(grad, index, coords, features)
+
+        capture.launches = kernel.launches
+        RA.roi_align_bwd = capture
+        return self
+
+    def __exit__(self, *exc):
+        from lgd_tpu_torch.ops import roi_align as RA
+
+        self.saved.launches = RA.roi_align_bwd.launches
+        RA.roi_align_bwd = self.saved
+
+
+def phase_mask_rcnn_inference(device, card):
+    """Mask R-CNN R-50 FPN inference through do_test at batch 8: K2 twice
+    and K3 twice per batch (the box head's 7x7 and the mask head's 14x14
+    pooling), 1..100 finite detections per image with (8, 100, 28, 28)
+    mask probabilities in [0, 1], bbox and segm COCO metrics; one batch
+    again through ``model.inference`` with the plain NMS swapped in: equal
+    detection sets and equal masks of matched detections; K3 held at
+    14x14 against the plain version on that batch's own mask ROIs, in
+    bf16 and in float32 (the levels cast), and timed. Returns the path's
+    launches."""
+    from lgd_tpu_torch.data import TestLoader, get_dataset_dicts
+    from lgd_tpu_torch.engine.trainer import do_test
+    from lgd_tpu_torch.models.distillator import build_model
+    from lgd_tpu_torch.ops import roi_align as RA
+
+    cfg = mask_rcnn_cfg()
+    model = build_model(cfg, dtype=torch.bfloat16, device=device, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"model: R-{cfg.MODEL.RESNETS.DEPTH} FPN Mask R-CNN, {n_params} "
+        f"parameters, {cfg.TPU.COMPUTE_DTYPE} convolutions")
+
+    rec = RecordingModel(model)
+    zero_launches()
+    t0 = time.perf_counter()
+    res = do_test(cfg, rec, device, batch_size=8)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n = len(rec.outputs)
+    check(launches == expect_launches({"K2": 2, "K3 forward": 2}, n),
+          (launches, n))
+    for dets, masks in rec.outputs:
+        for t in (dets.boxes, dets.scores, masks):
+            check(torch.isfinite(t).all(), "non-finite detections or masks")
+        check(tuple(masks.shape) == (8, 100, 28, 28), tuple(masks.shape))
+        check(masks.min() >= 0 and masks.max() <= 1, "mask probabilities")
+        per_image = dets.valid.sum(dim=1).tolist()
+        check(all(1 <= k <= 100 for k in per_image), per_image)
+    for t in ("bbox", "segm"):
+        for key in ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR@100"):
+            check(key in res[t], (t, key))
+    log(f"Mask R-CNN do_test: {n} batches, launches {launches}, bbox AP "
+        f"{res['bbox']['AP']:.4f} AP50 {res['bbox']['AP50']:.4f}, segm AP "
+        f"{res['segm']['AP']:.4f} AP50 {res['segm']['AP50']:.4f}, wall "
+        f"{wall:.2f} s = {16 / wall:.2f} images/s incl. host preprocessing "
+        f"and COCO scoring [{card}]")
+
+    loader = TestLoader(cfg, get_dataset_dicts("synthetic_mini"), 8)
+    batch = next(iter(loader))
+    images = torch.from_numpy(batch["image"]).to(device).permute(0, 3, 1, 2)
+    sizes = torch.from_numpy(batch["image_size"]).to(device)
+    kern, kern_masks = model.inference(images, sizes)
+    heads = model.student.roi_heads
+    pool, pooled = heads.pool, []
+
+    def recorded_pool(*args):
+        pooled.append(args)
+        return pool(*args)
+
+    heads.pool = recorded_pool
+    try:
+        with PlainKernels():
+            plain, plain_masks = model.inference(images, sizes)
+    finally:
+        del heads.pool
+    check(len(pooled) == 2, f"{len(pooled)} ROIAlign calls")
+    worst = [same_det_sets(kern, plain, i) for i in range(images.shape[0])]
+    worst_mask = 0.0
+    for i in range(images.shape[0]):
+        for j in torch.nonzero(kern.valid[i]).flatten().tolist():
+            dist = (plain.boxes[i] - kern.boxes[i, j]).abs().amax(1).float()
+            dist = torch.where(plain.valid[i] & (plain.classes[i]
+                                                 == kern.classes[i, j]),
+                               dist, float("inf"))
+            k = int(dist.argmin())
+            worst_mask = max(worst_mask, (kern_masks[i, j].float()
+                                          - plain_masks[i, k].float())
+                             .abs().max().item())
+    check(worst_mask <= 1e-2, f"masks of matched detections differ by "
+                              f"{worst_mask}")
+    log(f"one batch ({tuple(images.shape)}): the kernels and the plain NMS "
+        f"give equal detection sets (largest differences: box "
+        f"{max(w[0] for w in worst):.3e} px, score "
+        f"{max(w[1] for w in worst):.3e}) and masks (largest difference "
+        f"{worst_mask:.3e})")
+    feats, boxes, valid = pooled[1][:3]
+    index, coords = RA.roi_geometry(boxes, valid, heads.strides, MASK_OUT,
+                                    heads.min_level, heads.mask_sampling_ratio)
+    levels = [feats[f].contiguous() for f in heads.in_features]
+    for dtype in (torch.bfloat16, torch.float32):
+        time_k3([f.to(dtype) for f in levels], index, coords, MASK_OUT, None,
+                "inference mask ROIs of one batch", card)
+
+    def infer():
+        model.inference(images, sizes)
+
+    step_ms = cuda_ms(infer, iters=5)
+    log(f"Mask R-CNN model.inference, batch {images.shape[0]} at "
+        f"{tuple(images.shape[-2:])}: {step_ms:.2f} ms = "
+        f"{1000 * images.shape[0] / step_ms:.2f} images/s [{card}]")
+    del model, rec, pooled, levels
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_mask_rcnn_training(device, card):
+    """Mask R-CNN LGD training through do_train at batch 16 on the
+    800x1344 canvases with the seg-mask teacher, distillation from step 2:
+    K1a/K1b 5, K2 2 and K3 forward and backward 4 each per step (7x7 and
+    14x14 in the student's and the teacher's pass); K3 at 14x14 held
+    forward and backward and timed on the third step's own mask ROIs, the
+    student's bf16 levels and the teacher's float32 ones; then
+    do_test(eval_teacher=True), bbox and segm. Returns the launches of the
+    do_train run."""
+    from lgd_tpu_torch.ops import roi_align as RA
+
+    cfg = mask_train_cfg()
+    step = {"K1a": 5, "K1b": 5, "K2": 2, "K3 forward": 4, "K3 backward": 4}
+    with CaptureK3Backward(MASK_OUT, after=4, count=2) as captured:
+        model, train = phase_train(
+            device, card, cfg, "Mask R-CNN, seg-mask teacher",
+            MASK_TRAIN_STEPS, MASK_TIMED_STEPS, 2, step, MASK_LOSSES)
+    # one step's two: the student's levels in its compute dtype, the
+    # teacher's in float32
+    dtypes = {inputs[3].dtype for inputs in captured.inputs}
+    check(len(captured.inputs) == 2 and dtypes == {
+        getattr(torch, cfg.TPU.COMPUTE_DTYPE), torch.float32}, dtypes)
+    for grad, index, coords, *feats in captured.inputs:
+        grad, index, coords = (t.to(device) for t in (grad, index, coords))
+        feats = [f.to(device) for f in feats]
+        valid = index[:, 1] >= 0
+        check(valid.any() and not valid.all(), "the mask ROIs' fg subset")
+        time_k3(feats, index, coords, MASK_OUT, grad,
+                "the training path's mask ROIs (step 2)", card)
+        del grad, feats
+    del captured
+    torch.cuda.empty_cache()
+    phase_eval_teacher(model, cfg, device, card,
+                       {"K1a": 5, "K2": 2, "K3 forward": 2})
+    del model
+    torch.cuda.empty_cache()
+    return train
+
+
+def phase_mask_card_vs_cpu(device):
+    """The float32 card-vs-CPU ``train_forward`` of the R-CNN phase for
+    Mask R-CNN with the seg-mask teacher: loss_mask and loss_mask.tea
+    among its eleven losses, K3 forward and backward 4 each. The mask
+    head's convolutions are drawn lecun-normal: at their normal(0.001)
+    init every mask logit is near 0 and both mask losses are ln 2
+    whatever the targets."""
+    from lgd_tpu_torch.models.distillator import _lecun_normal_
+
+    def prepare(model):
+        _lecun_normal_(model.student.roi_heads.mask_head.modules(),
+                       torch.Generator().manual_seed(2))
+
+    phase_rcnn_card_vs_cpu(
+        device, make_cfg=mask_rcnn_cfg, loss_keys=MASK_LOSSES,
+        per_run={"K1a": 5, "K1b": 5, "K2": 2, "K3 forward": 4,
+                 "K3 backward": 4}, make_gt=mask_card_vs_cpu_gt,
+        prepare=prepare)
 
 
 DCN_OPTS = ["MODEL.RESNETS.DEPTH", 101,
@@ -3052,6 +3360,9 @@ def main():
     del model
     torch.cuda.empty_cache()
     phase_rcnn_card_vs_cpu(device)
+    paths["Mask R-CNN inference"] = phase_mask_rcnn_inference(device, card)
+    paths["Mask R-CNN training"] = phase_mask_rcnn_training(device, card)
+    phase_mask_card_vs_cpu(device)
     paths["R-101-DCNv2 inference"] = phase_dcn_inference(
         device, card, "R-101-DCNv2", [])
     paths["X-101-32x8d-DCNv2 inference"] = phase_dcn_inference(

@@ -21,7 +21,7 @@ import numpy as np
 
 from ..structures import BatchedInstances
 from .coco import get_detection_dataset_dicts
-from .dataset_mapper import DatasetMapper
+from .dataset_mapper import DatasetMapper, rasterize_polygons
 
 logger = logging.getLogger(__name__)
 
@@ -53,30 +53,67 @@ def eval_canvas_shapes(cfg):
     return (short, long_), (long_, short)
 
 
-def pack_batch(samples: List[Dict], canvas_hw, max_instances: int) -> Dict:
+def segmask_bitmasks(polygons, n: int, hw, canvas_hw,
+                     stride: int) -> np.ndarray:
+    """(n, H // stride, W // stride) uint8 bitmasks of the first n
+    instances on the padded canvas: each polygon rasterized at the image's
+    full (h, w), then sampled nearest at every stride-th pixel; cells past
+    the image are 0 (lgd_tpu/data/loader.py:160-171)."""
+    h, w = hw
+    hs, ws = canvas_hw[0] // stride, canvas_hw[1] // stride
+    ys = np.minimum(np.arange(hs) * stride, h - 1)
+    xs = np.minimum(np.arange(ws) * stride, w - 1)
+    bm = np.zeros((n, hs, ws), np.uint8)
+    for j, p in enumerate(polygons[:n]):
+        sub = rasterize_polygons(p, h, w)[ys][:, xs]
+        sub[ys >= h] = 0
+        bm[j] = sub
+    return bm
+
+
+def pack_batch(samples: List[Dict], canvas_hw, max_instances: int,
+               segmask_stride: Optional[int] = None) -> Dict:
     """Mapper outputs -> one padded batch: image (B, H, W, 3) float32 BGR
     (NHWC, as the JAX package packs it), image_size (B, 2) int32 (h, w),
-    gt BatchedInstances, and host-only ``_meta``."""
+    gt BatchedInstances, and host-only ``_meta``. The GT carries the
+    samples' ``masks49`` and ``mask_crops`` where they have them, and with
+    ``segmask_stride`` the bitmasks of their polygons at that stride."""
     B = len(samples)
     H, W = canvas_hw
     images = np.zeros((B, H, W, 3), np.float32)
     sizes = np.zeros((B, 2), np.int32)
+    bitmasks = []
     meta = []
     for i, s in enumerate(samples):
         img = s["image"][:H, :W]  # canvas guard (buckets make it a no-op)
         h, w = img.shape[:2]
         images[i, :h, :w] = img
         sizes[i] = (h, w)
+        if segmask_stride is not None:
+            bitmasks.append(segmask_bitmasks(
+                s.get("polygons") or [], len(s["boxes"]), (h, w), canvas_hw,
+                segmask_stride))
         meta.append({
             "image_id": s.get("image_id", -1),
             "height": s.get("height", h),
             "width": s.get("width", w),
             "input_hw": (h, w),
         })
-    gt = BatchedInstances.from_lists([s["boxes"] for s in samples],
-                                     [s["classes"] for s in samples],
-                                     capacity=max_instances)
+    optional = lambda key: ([s.get(key) for s in samples]
+                            if any(key in s for s in samples) else None)
+    gt = BatchedInstances.from_lists(
+        [s["boxes"] for s in samples], [s["classes"] for s in samples],
+        capacity=max_instances, masks49_list=optional("masks49"),
+        bitmasks_list=bitmasks if segmask_stride is not None else None,
+        mask_crops_list=optional("mask_crops"))
     return {"image": images, "image_size": sizes, "gt": gt, "_meta": meta}
+
+
+def labelmap_stride(cfg) -> Optional[int]:
+    """TPU.SEGMASK_STRIDE when the seg-mask teacher needs bitmasks
+    (LOAD_LABELMAP), else None."""
+    return (cfg.TPU.SEGMASK_STRIDE
+            if cfg.MODEL.DISTILLATOR.LABEL_ENCODER.LOAD_LABELMAP else None)
 
 
 class TestLoader:
@@ -91,6 +128,7 @@ class TestLoader:
         self.batch_size = batch_size
         self.canvases = eval_canvas_shapes(cfg)
         self.max_instances = cfg.TPU.MAX_INSTANCES
+        self.segmask_stride = labelmap_stride(cfg)
         self._sched = self._schedule()
 
     def _schedule(self):
@@ -133,7 +171,8 @@ class TestLoader:
             n_real = len(samples)
             samples += [self._dummy_sample()
                         for _ in range(self.batch_size - n_real)]
-            batch = pack_batch(samples, self.canvases[b], self.max_instances)
+            batch = pack_batch(samples, self.canvases[b], self.max_instances,
+                               self.segmask_stride)
             for i in [*unread, *range(n_real, self.batch_size)]:
                 batch["_meta"][i] = None  # padding slot
             yield batch
@@ -238,6 +277,7 @@ class TrainLoader:
             self.sampler = TrainingSampler(len(self.dataset_dicts), seed=seed)
         self.canvases = train_canvas_shapes(cfg)
         self.max_instances = cfg.TPU.MAX_INSTANCES
+        self.segmask_stride = labelmap_stride(cfg)
         self.aspect_grouping = cfg.DATALOADER.ASPECT_RATIO_GROUPING
         self.prefetch = cfg.TPU.PREFETCH
         self._rng = np.random.RandomState(seed * 1000)
@@ -254,7 +294,8 @@ class TrainLoader:
             if len(buckets[b]) == self.batch_size:
                 canvas = (self.canvases[b] if self.aspect_grouping
                           else (max(self.canvases[0]),) * 2)
-                yield pack_batch(buckets[b], canvas, self.max_instances)
+                yield pack_batch(buckets[b], canvas, self.max_instances,
+                                 self.segmask_stride)
                 buckets[b] = []
 
     def __iter__(self):

@@ -3,7 +3,7 @@ multi-scale ResizeShortestEdge and RandomFlip for training, a fixed
 ResizeShortestEdge for evaluation. They draw from the caller's
 ``np.random.RandomState`` in the JAX package's order, and ResizeTransform
 resizes with cv2.INTER_LINEAR, so both packages hand the model the same
-pixels and boxes for the same seed."""
+pixels, boxes and polygons for the same seed."""
 
 from __future__ import annotations
 
@@ -30,6 +30,10 @@ class Transform:
         corners = self.apply_coords(corners).reshape(n, 4, 2)
         return np.concatenate([corners.min(axis=1), corners.max(axis=1)],
                               axis=1).astype(np.float32)
+
+    def apply_polygons(self, polygons):  # [flattened xy, ...]
+        return [self.apply_coords(np.asarray(p, np.float64).reshape(-1, 2))
+                .reshape(-1) for p in polygons]
 
 
 class ResizeTransform(Transform):
@@ -141,3 +145,9 @@ def transform_boxes(tfms, boxes):
     for t in tfms:
         boxes = t.apply_box(boxes)
     return boxes
+
+
+def transform_polygons(tfms, polygons):
+    for t in tfms:
+        polygons = t.apply_polygons(polygons)
+    return polygons

@@ -12,7 +12,8 @@ others), and the final weights in OUTPUT_DIR/model_final.pth. Nothing is
 written without OUTPUT_DIR.
 ``do_test`` runs batched inference, rescales the detections to the
 original image size and scores them with the dataset's evaluator
-(``get_evaluator``, by its ``evaluator_type``).
+(``get_evaluator``, by its ``evaluator_type``): boxes, and with MASK_ON
+each detection's mask grid too (bbox and segm).
 """
 
 from __future__ import annotations
@@ -45,8 +46,8 @@ def do_test(cfg, model, device, batch_size: int = 8,
             eval_teacher: bool = False) -> Dict:
     """Evaluation of ``model`` on every dataset in cfg.DATASETS.TEST, each
     by the evaluator its metadata names (over cfg.NUM_CLASSES classes for
-    COCO). Returns {"bbox": {"AP": ...}} for one dataset, else
-    {name: ...}."""
+    COCO). Returns {"bbox": {"AP": ...}} (and "segm" with MASK_ON) for one
+    dataset, else {name: ...}."""
     device = torch.device(device)
     results = {}
     for dataset_name in cfg.DATASETS.TEST:
@@ -63,12 +64,14 @@ def do_test(cfg, model, device, batch_size: int = 8,
             t0 = time.perf_counter()
             images = torch.from_numpy(batch["image"]).to(device)
             sizes = torch.from_numpy(batch["image_size"]).to(device)
-            dets = model.inference(images.permute(0, 3, 1, 2), sizes,
-                                   batch["gt"].to(device), eval_teacher)
+            out = model.inference(images.permute(0, 3, 1, 2), sizes,
+                                  batch["gt"].to(device), eval_teacher)
+            dets, masks = out if isinstance(out, tuple) else (out, None)
             # the copy to the host waits for the device
             boxes_b, scores_b, classes_b, valid_b = (
                 t.cpu().numpy() for t in (dets.boxes, dets.scores,
                                           dets.classes, dets.valid))
+            masks_b = None if masks is None else masks.cpu().numpy()
             compute_time += time.perf_counter() - t0
 
             for i, meta in enumerate(batch["_meta"]):
@@ -81,15 +84,19 @@ def do_test(cfg, model, device, batch_size: int = 8,
                 boxes = boxes_b[i][valid] * np.asarray([sx, sy, sx, sy])
                 boxes[:, 0::2] = boxes[:, 0::2].clip(0, meta["width"])
                 boxes[:, 1::2] = boxes[:, 1::2].clip(0, meta["height"])
+                extra = ({} if masks_b is None
+                         else {"masks": masks_b[i][valid]})
                 evaluator.process(meta["image_id"], boxes,
-                                  scores_b[i][valid], classes_b[i][valid])
+                                  scores_b[i][valid], classes_b[i][valid],
+                                  **extra)
         logger.info("Total inference pure compute time: %.6f s / img "
                     "(%d imgs, batch=%d, device=%s)",
                     compute_time / max(n_timed, 1), len(loader), batch_size,
                     device)
         dump = (f"{cfg.OUTPUT_DIR}/inference/{dataset_name}"
                 if cfg.OUTPUT_DIR else None)
-        results[dataset_name] = evaluator.evaluate(("bbox",), output_dir=dump)
+        iou_types = ("bbox", "segm") if cfg.MODEL.MASK_ON else ("bbox",)
+        results[dataset_name] = evaluator.evaluate(iou_types, output_dir=dump)
         logger.info("Results[%s]: %s", dataset_name, results[dataset_name])
     if len(results) == 1:
         return next(iter(results.values()))

@@ -9,10 +9,13 @@ area-range filtering, maxDets truncation, and 101-point interpolated AP.
 Host-side and offline by design (the reference's evaluation is too); the
 hot path stays on device.
 
-The port's copy of lgd_tpu/evaluation/coco_eval.py, for the bbox task
-only: the greedy matching is the numpy loop (the JAX package's optional g++
-core is not carried over). The ground truth comes from the catalog by
-``dataset_name``, or as dataset dicts (``gt_dataset``).
+The port's copy of lgd_tpu/evaluation/coco_eval.py, for the bbox and segm
+tasks: the greedy matching is the numpy loop (the JAX package's optional
+g++ core is not carried over). The ground truth comes from the catalog by
+``dataset_name``, or as dataset dicts (``gt_dataset``). For segm a
+detection carries its box's mask probability grid, and its IoU against
+each polygon GT is the exact one of ``mask_utils.mask_iou_det_gt``; a GT's
+area is its polygons', or its box's where it has none.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from collections import defaultdict
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from .mask_utils import mask_iou_det_gt, polygon_area
 
 logger = logging.getLogger(__name__)
 
@@ -101,24 +106,26 @@ class COCOEvaluator:
                 x1, y1, w, h = a["bbox"]
                 self._gt[img_id][a["category_id"]].append(
                     (np.asarray([x1, y1, w, h], np.float64),
-                     a.get("iscrowd", 0))
-                )
+                     a.get("iscrowd", 0), a.get("segmentation")))
 
     def reset(self):
         self._dets = defaultdict(lambda: defaultdict(list))
         self._match_cache = {}
 
-    def process(self, image_id, boxes_xyxy, scores, classes):
-        """Add one image's detections (in original-image coordinates)."""
-        for box, score, cls in zip(boxes_xyxy, scores, classes):
+    def process(self, image_id, boxes_xyxy, scores, classes, masks=None):
+        """Add one image's detections (in original-image coordinates);
+        masks: optional (D, m, m) probability grids over the boxes, for
+        segm."""
+        for i, (box, score, cls) in enumerate(zip(boxes_xyxy, scores,
+                                                  classes)):
             x1, y1, x2, y2 = [float(v) for v in box]
             self._dets[image_id][int(cls)].append(
                 (np.asarray([x1, y1, x2 - x1, y2 - y1], np.float64),
-                 float(score)))
+                 float(score), None if masks is None else np.asarray(masks[i])))
 
     # -- core protocol ------------------------------------------------------
 
-    def _evaluate_img_cat(self, img_id, cat, area_rng):
+    def _evaluate_img_cat(self, img_id, cat, area_rng, iou_type="bbox"):
         """Returns (det_scores, det_matched, det_ignored, num_valid_gt) with
         det_* of shape (T, D) for the 10 IoU thresholds."""
         gts = self._gt[img_id].get(cat, [])
@@ -129,7 +136,7 @@ class COCOEvaluator:
         scores = np.asarray([d[1] for d in dets])
         if D == 0:
             n_valid = sum(
-                1 for b, c in gts
+                1 for b, c, _ in gts
                 if not c and area_rng[0] <= b[2] * b[3] < area_rng[1]
             )
             return scores, np.zeros((T, 0)), np.zeros((T, 0), bool), n_valid
@@ -137,7 +144,12 @@ class COCOEvaluator:
         gt_boxes = np.stack([g[0] for g in gts]) if G else np.zeros((0, 4))
         gt_crowd = (np.asarray([g[1] for g in gts], np.int64)
                     if G else np.zeros(0, np.int64))
-        gt_area = gt_boxes[:, 2] * gt_boxes[:, 3] if G else np.zeros(0)
+        gt_polys = [g[2] for g in gts]
+        if iou_type == "segm":
+            gt_area = np.asarray([polygon_area(p) if p else b[2] * b[3]
+                                  for (b, _, p) in gts]) if G else np.zeros(0)
+        else:
+            gt_area = gt_boxes[:, 2] * gt_boxes[:, 3] if G else np.zeros(0)
         gt_ignore = gt_crowd.astype(bool) | (gt_area < area_rng[0]) | (
             gt_area >= area_rng[1]
         )
@@ -146,9 +158,19 @@ class COCOEvaluator:
         gt_boxes, gt_crowd, gt_ignore = (
             gt_boxes[order], gt_crowd[order], gt_ignore[order]
         )
+        gt_polys = [gt_polys[i] for i in order]
 
         det_boxes = np.stack([d[0] for d in dets])
-        iou = box_iou_xywh(det_boxes, gt_boxes, gt_crowd)
+        if iou_type == "segm":
+            iou = np.zeros((D, G))
+            for di, (bx, _, mk) in enumerate(dets):
+                dbox = [bx[0], bx[1], bx[0] + bx[2], bx[1] + bx[3]]
+                for gi in range(G):
+                    if gt_polys[gi] and mk is not None:
+                        iou[di, gi] = mask_iou_det_gt(
+                            dbox, mk, gt_polys[gi], bool(gt_crowd[gi]))
+        else:
+            iou = box_iou_xywh(det_boxes, gt_boxes, gt_crowd)
 
         # greedy matching
         det_matched = np.zeros((T, D), np.int64)
@@ -187,7 +209,7 @@ class COCOEvaluator:
         dataset neither positively nor negatively annotates."""
         return True
 
-    def _accumulate(self, area_rng_name="all",
+    def _accumulate(self, area_rng_name="all", iou_type="bbox",
                     max_dets: Optional[int] = None):
         """AP/AR per (IoU thr, category). ``max_dets`` truncates each
         image-category's score-sorted detections post-matching — identical
@@ -208,12 +230,12 @@ class COCOEvaluator:
                     continue
                 if not self._img_eligible(img_id, cat):
                     continue
-                key = (img_id, cat, area_rng_name)
+                key = (img_id, cat, area_rng_name, iou_type)
                 if key in self._match_cache:
                     s, m, ig, nv = self._match_cache[key]
                 else:
                     s, m, ig, nv = self._evaluate_img_cat(
-                        img_id, cat, area_rng)
+                        img_id, cat, area_rng, iou_type)
                     self._match_cache[key] = (s, m, ig, nv)
                 if max_dets < len(s):
                     s, m, ig = s[:max_dets], m[:, :max_dets], ig[:, :max_dets]
@@ -251,7 +273,7 @@ class COCOEvaluator:
         """Full COCO summarize() metric family: AP/AP50/AP75/APs/m/l,
         AR@{1,10,100} and ARs/m/l (at maxDets=100), plus per-category AP
         ('AP-<class>' keys, detectron2 COCOEvaluator behavior)."""
-        ap_all, ar_all = self._accumulate("all")
+        ap_all, ar_all = self._accumulate("all", iou_type)
         nan = lambda a: np.all(np.isnan(a))
         mean = lambda a: float(np.nanmean(a) * 100) if not nan(a) else 0.0
         results = {
@@ -262,10 +284,10 @@ class COCOEvaluator:
             "AR": mean(ar_all),  # back-compat alias of AR@max_dets
         }
         for k in self.ar_dets:
-            _, ar_k = self._accumulate("all", max_dets=k)
+            _, ar_k = self._accumulate("all", iou_type, max_dets=k)
             results[f"AR@{k}"] = mean(ar_k)
         for name in ("small", "medium", "large"):
-            ap, ar = self._accumulate(name)
+            ap, ar = self._accumulate(name, iou_type)
             results["AP" + name[0]] = (
                 float(np.nanmean(ap) * 100) if not nan(ap) else float("nan")
             )
@@ -297,7 +319,7 @@ class COCOEvaluator:
             for cat, dets in cats.items():
                 cat_id = (self._contig_to_cat_id.get(cat, cat)
                           if self._contig_to_cat_id else cat)
-                for box, score in dets:
+                for box, score, _ in dets:
                     rec = {
                         "image_id": img_id,
                         "category_id": int(cat_id),
@@ -311,14 +333,15 @@ class COCOEvaluator:
     def evaluate(self, iou_types=("bbox",),
                  output_dir: Optional[str] = None
                  ) -> Dict[str, Dict[str, float]]:
-        if tuple(iou_types) != ("bbox",):
-            raise NotImplementedError(
-                f"the port scores boxes only, not {tuple(iou_types)}")
         self._match_cache = {}
-        out = {"bbox": self._evaluate_type("bbox")}
-        logger.info("COCO bbox results: %s",
-                    {k: round(v, 3) for k, v in out["bbox"].items()
-                     if not k.startswith("AP-")})
+        out = {}
+        for t in iou_types:
+            if t not in ("bbox", "segm"):
+                raise NotImplementedError(f"no COCO {t!r} scoring")
+            out[t] = self._evaluate_type(t)
+            logger.info("COCO %s results: %s", t,
+                        {k: round(v, 3) for k, v in out[t].items()
+                         if not k.startswith("AP-")})
         if output_dir:
             import json
             import os

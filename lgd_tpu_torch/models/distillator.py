@@ -230,15 +230,27 @@ class DistillatorGeneralizedRCNN(BaseDistillator):
     def init_student_(self, generator: torch.Generator):
         """The flax initializers: the trunk's (see ``init_trunk_``),
         normal(0.01) RPN convs and class scores, normal(0.001) box deltas,
-        lecun-normal FCs, zero biases."""
+        lecun-normal FCs, zero biases; the mask head's normal(0.001) convs
+        and predictor and its lecun-normal deconvolution."""
         s = self.student
         init_trunk_(s, generator)
         head = s.rpn.head
         predictor = s.roi_heads.box_predictor
-        for m, std in ((head.conv, 0.01), (head.objectness_logits, 0.01),
-                       (head.anchor_deltas, 0.01),
-                       (predictor.cls_score, 0.01),
-                       (predictor.bbox_pred, 0.001)):
+        normal = [(head.conv, 0.01), (head.objectness_logits, 0.01),
+                  (head.anchor_deltas, 0.01), (predictor.cls_score, 0.01),
+                  (predictor.bbox_pred, 0.001)]
+        if s.mask_on:
+            mask = s.roi_heads.mask_head
+            normal += [(getattr(mask, f"mask_fcn{i + 1}"), 0.001)
+                       for i in range(mask.num_conv)]
+            normal.append((mask.predictor, 0.001))
+            # flax's fan-in of a transposed kernel (kh, kw, in, out)
+            w = mask.deconv.weight
+            fan_in = w.shape[0] * w.shape[2] * w.shape[3]
+            nn.init.normal_(w, 0.0, 1.0 / math.sqrt(fan_in),
+                            generator=generator)
+            nn.init.zeros_(mask.deconv.bias)
+        for m, std in normal:
             nn.init.normal_(m.weight, 0.0, std, generator=generator)
             nn.init.zeros_(m.bias)
         _lecun_normal_(s.roi_heads.box_head.modules(), generator)
@@ -273,16 +285,18 @@ class DistillatorGeneralizedRCNN(BaseDistillator):
     @torch.no_grad()
     def inference(self, images: torch.Tensor, image_sizes: torch.Tensor,
                   gt: Optional[BatchedInstances] = None,
-                  eval_teacher: bool = False) -> BatchedDetections:
+                  eval_teacher: bool = False):
         """Student features, with ``eval_teacher`` replaced by the
-        teacher's, through the RPN, the box head and NMS."""
+        teacher's, through the RPN, the box head and NMS: the detections,
+        or with MASK_ON (detections, mask probabilities (B, D, 28, 28))."""
         padded_hw = tuple(images.shape[-2:])
         _, feats = self.student(images, image_sizes)
         if eval_teacher:
             if gt is None:
                 raise ValueError("eval_teacher needs the GT annotations")
             feats, _, _ = self.teacher(gt, feats, padded_hw)
-        return self.student.infer_boxes(feats, image_sizes)
+        dets, mask_probs = self.student.infer_boxes(feats, image_sizes)
+        return dets if mask_probs is None else (dets, mask_probs)
 
 
 class _ShiftBasedDistillator(BaseDistillator):

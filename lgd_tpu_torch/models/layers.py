@@ -29,6 +29,24 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` that computes in ``compute_dtype`` with
+    float32 parameters. flax's ``nn.ConvTranspose`` (transpose_kernel
+    False) equals it with the kernel flipped in both spatial axes; the
+    param bridge flips."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias,
+                                  self.stride, self.padding)
+
+
 class Linear(nn.Linear):
     """``nn.Linear`` that computes in ``compute_dtype`` with float32
     parameters, as flax's ``nn.Dense(dtype=...)``."""

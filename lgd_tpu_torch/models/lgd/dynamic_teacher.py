@@ -3,7 +3,9 @@ of lgd_tpu/models/lgd/dynamic_teacher.py), NCHW.
 
 Tokens stay batched as (B, M', C) with a key-validity mask, which is the
 reference's block-diagonal attention over the flattened instances of all
-images. Inside-GT masks are (B, M', Hi*Wi) per level; mask pooling and the
+images. Inside-GT masks are (B, M', Hi*Wi) per level: the boxes', or with
+LOAD_LABELMAP (``use_seg_map``) each instance's stride-aligned bitmask
+resampled nearest to the level; mask pooling and the
 rendering scatter are batched einsums; the context token sits in the fixed
 last slot. The attention is ``ops.attention.masked_attention``: kernels K1a
 and K1b on the card.
@@ -43,6 +45,24 @@ def inside_gt_masks(boxes: torch.Tensor, padded_hw: Tuple[int, int],
     in_x = (xc[..., None] - xs).abs() / w[..., None] <= 0.5
     mask = in_y[..., :, None] & in_x[..., None, :]
     return mask.reshape(*mask.shape[:-2], hi * wi).float()
+
+
+def segmask_inside_masks(bitmasks: torch.Tensor, num_tokens: int,
+                         level_hw: Tuple[int, int]) -> torch.Tensor:
+    """The LOAD_LABELMAP inside masks: bitmasks (B, M, Hs, Ws) uint8 on the
+    padded canvas, resampled nearest to the (hi, wi) level by integer
+    floor division, -> (B, num_tokens, hi*wi) float; a context slot (when
+    num_tokens is M + 1) is all ones (lgd_tpu/models/lgd/
+    dynamic_teacher.py:70-88)."""
+    B, M, Hs, Ws = bitmasks.shape
+    hi, wi = level_hw
+    dev = bitmasks.device
+    ys = ((torch.arange(hi, device=dev) * Hs) // hi).clamp(0, Hs - 1)
+    xs = ((torch.arange(wi, device=dev) * Ws) // wi).clamp(0, Ws - 1)
+    m = bitmasks[:, :, ys][:, :, :, xs].float().reshape(B, M, hi * wi)
+    if num_tokens == M + 1:
+        m = torch.cat([m, m.new_ones(B, 1, hi * wi)], dim=1)
+    return m
 
 
 class MultiHeadAttention(nn.Module):
@@ -94,10 +114,6 @@ class DynamicTeacher(nn.Module):
                  detach_appearance_embed: bool = False,
                  use_seg_map: bool = False):
         super().__init__()
-        if use_seg_map:
-            raise NotImplementedError(
-                "the LOAD_LABELMAP seg-mask teacher comes with Mask R-CNN "
-                "(ROADMAP.md, port queue item 9)")
         if interact_pattern not in ("stuGuided", "labelGuided",
                                     "student_fill", "teacher_fill"):
             raise ValueError(f"unknown INTERACT_PATTERN {interact_pattern!r}")
@@ -105,7 +121,8 @@ class DynamicTeacher(nn.Module):
         self.interact_pattern = interact_pattern
         self.add_context_box = add_context_box
         self.detach_appearance_embed = detach_appearance_embed
-        self.label_encoder_ = LabelEncoder(num_classes)
+        self.use_seg_map = use_seg_map
+        self.label_encoder_ = LabelEncoder(num_classes, parse_mask=use_seg_map)
         self.canoni_proj_1D = TokenMLP(256, channels)
         self.student_proj_2D = SharedConvGN(channels)
         self.local_inst_proj_2D = Conv2d(channels, channels, 3, padding=1)
@@ -127,15 +144,21 @@ class DynamicTeacher(nn.Module):
         {level: (B, M', Hi*Wi)}, token_valid (B, M'))."""
         keys = sorted(stu_fpn_feats)
         desc, token_valid, boxes = encode_descriptors(
-            gt, padded_hw, self.num_classes, self.add_context_box)
+            gt, padded_hw, self.num_classes, self.add_context_box,
+            self.use_seg_map)
         canoni = self.canoni_proj_1D(self.label_encoder_(desc, token_valid))
         tok = token_valid[..., None].float()
 
         feats = stu_fpn_feats
         if self.detach_appearance_embed:
             feats = {k: v.detach() for k, v in feats.items()}
-        masks = {k: inside_gt_masks(boxes, padded_hw, feats[k].shape[-2:])
-                 * tok for k in keys}
+        if self.use_seg_map:
+            masks = {k: segmask_inside_masks(gt.bitmasks, tok.shape[1],
+                                             feats[k].shape[-2:]) * tok
+                     for k in keys}
+        else:
+            masks = {k: inside_gt_masks(boxes, padded_hw, feats[k].shape[-2:])
+                     * tok for k in keys}
 
         tea_feats = {}
         for k in keys:

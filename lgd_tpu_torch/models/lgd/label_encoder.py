@@ -8,11 +8,13 @@ one point are per-token MLPs (``TokenMLP``: Linear, affine-free channel
 LayerNorm, ReLU), and each STN is a per-token MLP producing a (k, k)
 transform. Hierarchical pooling is a masked max over the valid tokens.
 
-Descriptor layout: [x1/W, y1/H, x2/W, y2/H, one_hot(num_classes)] scaled
-from (0, 1) to (-1, 1), W and H the padded canvas. An image without GT gets
-a fallback (0, 0, 1, 1) box with an all-zero one-hot in slot 0; the context
-slot holds the whole-image box with an all-zero one-hot and is valid only
-when the image has GT.
+Descriptor layout: [x1/W, y1/H, x2/W, y2/H, one_hot(num_classes)
+[, masks49]] scaled from (0, 1) to (-1, 1), W and H the padded canvas; the
+49-wide 7x7 in-box mask tail comes with LOAD_LABELMAP (``parse_mask``). An
+image without GT gets a fallback (0, 0, 1, 1) box with an all-zero one-hot
+and mask in slot 0; the context slot holds the whole-image box with an
+all-zero one-hot and an all-ones mask, and is valid only when the image
+has GT.
 """
 
 from __future__ import annotations
@@ -29,10 +31,12 @@ from ...structures import BatchedInstances
 
 @torch.no_grad()
 def encode_descriptors(gt: BatchedInstances, padded_hw: Tuple[int, int],
-                       num_classes: int = 80, add_context_box: bool = False):
+                       num_classes: int = 80, add_context_box: bool = False,
+                       parse_mask: bool = False):
     """Padded descriptors and token metadata, without gradient.
 
-    Returns desc (B, M', 4 + num_classes) float32 in (-1, 1), token_valid
+    Returns desc (B, M', 4 + num_classes [+ 49]) float32 in (-1, 1),
+    token_valid
     (B, M') bool (fallback and context slots included), and boxes (B, M', 4)
     clamped to the padded canvas (what the inside-GT masks consume)."""
     H, W = padded_hw
@@ -50,13 +54,19 @@ def encode_descriptors(gt: BatchedInstances, padded_hw: Tuple[int, int],
               * gt.valid[..., None])
     # the fallback token keeps an all-zero one-hot
     onehot = torch.where(any_valid[:, None, None], onehot, 0.0)
+    parts = [onehot]
+    if parse_mask:
+        if gt.masks49 is None:
+            raise ValueError("LOAD_LABELMAP needs gt.masks49")
+        parts.append(torch.where(any_valid[:, None, None], gt.masks49, 0.0))
 
     if add_context_box:
         ctx = torch.tensor([0.0, 0.0, float(W), float(H)], device=dev)
         boxes = torch.cat([boxes, ctx.expand(B, 1, 4)], dim=1)
         valid = torch.cat([valid, any_valid[:, None]], dim=1)
-        onehot = torch.cat([onehot, onehot.new_zeros(B, 1, num_classes)],
-                           dim=1)
+        ctx_parts = [onehot.new_zeros(B, 1, num_classes),
+                     onehot.new_ones(B, 1, 49)]
+        parts = [torch.cat([p, c], dim=1) for p, c in zip(parts, ctx_parts)]
 
     boxes = torch.stack([boxes[..., 0].clamp(0, W - 1),
                          boxes[..., 1].clamp(0, H - 1),
@@ -64,7 +74,7 @@ def encode_descriptors(gt: BatchedInstances, padded_hw: Tuple[int, int],
                          boxes[..., 3].clamp(0, H - 1)], dim=-1)
     norm = boxes / torch.tensor([W, H, W, H], dtype=torch.float32,
                                 device=dev)
-    desc = torch.cat([norm, onehot], dim=-1) * 2.0 - 1.0
+    desc = torch.cat([norm, *parts], dim=-1) * 2.0 - 1.0
     desc = desc * valid[..., None]  # zero the padded tokens
     return desc, valid, boxes
 
@@ -106,11 +116,12 @@ class STN(nn.Module):
 
 
 class LabelEncoder(nn.Module):
-    """(B, M', k) descriptors -> (B, M', 256) label embeddings."""
+    """(B, M', k) descriptors -> (B, M', 256) label embeddings; k = 4 +
+    num_classes, + 49 with ``parse_mask``."""
 
-    def __init__(self, num_classes: int = 80):
+    def __init__(self, num_classes: int = 80, parse_mask: bool = False):
         super().__init__()
-        k = 4 + num_classes
+        k = 4 + num_classes + (49 if parse_mask else 0)
         self.inp = k
         self.stn_desc = STN(k)
         self.conv1 = TokenMLP(k, 64)

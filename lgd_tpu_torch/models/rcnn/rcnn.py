@@ -1,10 +1,11 @@
-"""Generalized R-CNN student, FPN trunk, box heads only (port of
-lgd_tpu/models/rcnn/rcnn.py), NCHW.
+"""Generalized R-CNN student (Faster and Mask R-CNN) on the FPN trunk
+(port of lgd_tpu/models/rcnn/rcnn.py), NCHW.
 
 The decomposed API of the reference RCNNCT: ``forward`` gives the raw and
 FPN features; ``predict`` runs the RPN and the ROI heads on any feature
 pyramid (the student's, or the teacher's for the '.tea' losses) and returns
-the loss dict; ``infer_boxes`` gives the detections. Proposals are fixed
+the loss dict; ``infer_boxes`` gives the detections and, with MASK_ON,
+their mask probabilities. Proposals are fixed
 (B, POST_NMS_TOPK) slabs. ``predict`` takes the sample's uniforms as an
 argument, shaped by ``sampling_shapes``, where the JAX package draws them
 from its ``sampling`` stream: ``rpn`` (B, R) for the anchor sample, then
@@ -14,7 +15,7 @@ proposal sample, in the order JAX draws them.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -26,9 +27,12 @@ from ..heads.retinanet import AnchorCache
 from ..layers import feature_strides, normalize_images
 from .roi_heads import (
     StandardROIHeads,
+    class_masks,
     fast_rcnn_inference,
     fast_rcnn_losses,
     label_and_sample_proposals,
+    mask_rcnn_loss,
+    take_fg_subset,
 )
 from .rpn import (
     RPN,
@@ -63,6 +67,7 @@ class RCNNCT(nn.Module):
         self.roi_heads = StandardROIHeads(cfg, out_channels, dtype=dtype)
         self.pixel_mean = tuple(cfg.MODEL.PIXEL_MEAN)
         self.pixel_std = tuple(cfg.MODEL.PIXEL_STD)
+        self.mask_on = cfg.MODEL.MASK_ON
         self.anchors = AnchorCache(
             lambda hw: rpn_anchors(cfg, hw, self.rpn.in_features))
 
@@ -99,7 +104,9 @@ class RCNNCT(nn.Module):
                 uniforms: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The RPN and ROI training pass on a feature pyramid; returns the
         loss dict (reference frcnn.py:59-76). The proposals carry no
-        gradient."""
+        gradient. With MASK_ON and GT masks, ``loss_mask`` comes from the
+        mask head on the slab's foreground-first top k = BATCH_SIZE_PER_IMAGE
+        * POSITIVE_FRACTION, its other slots pooled as invalid ROIs."""
         cfg = self.cfg
         anchors, counts = self.anchors(self._padded_hw(feats),
                                        image_sizes.device)
@@ -116,11 +123,23 @@ class RCNNCT(nn.Module):
         scores, box_deltas = self.roi_heads.box_forward(
             feats, sampled["boxes"], sampled["valid"])
         losses.update(fast_rcnn_losses(cfg, scores, box_deltas, sampled, gt))
+        if self.mask_on and (gt.mask_crops is not None
+                             or gt.bitmasks is not None):
+            heads = cfg.MODEL.ROI_HEADS
+            k = max(int(heads.BATCH_SIZE_PER_IMAGE * heads.POSITIVE_FRACTION),
+                    1)
+            sub = take_fg_subset(sampled, k)
+            mask_logits = self.roi_heads.mask_forward(feats, sub["boxes"],
+                                                      sub["is_fg"])
+            losses["loss_mask"] = mask_rcnn_loss(cfg, mask_logits, sub, gt)
         return losses
 
     def infer_boxes(self, feats: Dict[str, torch.Tensor],
-                    image_sizes: torch.Tensor) -> BatchedDetections:
-        """Proposals -> box head -> per-class NMS."""
+                    image_sizes: torch.Tensor
+                    ) -> Tuple[BatchedDetections, Optional[torch.Tensor]]:
+        """Proposals -> box head -> per-class NMS; with MASK_ON the mask
+        head on the detections, the sigmoid of each one's class channel
+        (B, D, 2R, 2R), else None."""
         cfg = self.cfg
         anchors, counts = self.anchors(self._padded_hw(feats),
                                        image_sizes.device)
@@ -130,5 +149,9 @@ class RCNNCT(nn.Module):
             training=False)
         scores, box_deltas = self.roi_heads.box_forward(feats, prop_boxes,
                                                         prop_valid)
-        return fast_rcnn_inference(cfg, scores, box_deltas, prop_boxes,
+        dets = fast_rcnn_inference(cfg, scores, box_deltas, prop_boxes,
                                    prop_valid, image_sizes)
+        if not self.mask_on:
+            return dets, None
+        logits = self.roi_heads.mask_forward(feats, dets.boxes, dets.valid)
+        return dets, torch.sigmoid(class_masks(logits, dets.classes))

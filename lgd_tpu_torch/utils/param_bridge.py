@@ -16,6 +16,12 @@ name, and only the leaves change:
   array) -> ``....scale``;
 - ``frozen/.../{scale,bias,mean,var}`` -> the FrozenBatchNorm buffers.
 
+A transposed convolution's kernel, the Mask R-CNN head's ``deconv``
+(flax ``nn.ConvTranspose``, (kh, kw, in, out)), goes to torch's (in, out,
+kh, kw) flipped in both spatial axes: flax's transpose_kernel=False
+convolves the dilated input with the kernel as it stands, torch's with it
+flipped.
+
 One weight also changes the order of its rows: the R-CNN box head's
 ``fc1``. The flax head flattens its pooled (R, R, C) features; the port's
 ROIAlign writes (C, R, R), so the rows of ``box_head/fc1/kernel`` are
@@ -60,8 +66,14 @@ def torch_key(flax_key: str) -> str:
     return ".".join([p for p in path if p != "GroupNorm_0"] + [leaf])
 
 
+def _transposed_conv(flax_key: str) -> bool:
+    return flax_key.endswith("/deconv/kernel")
+
+
 def _kernel_axes(flax_key: str, ndim: int):
     """The transpose that takes a flax kernel to the torch weight."""
+    if _transposed_conv(flax_key) and ndim == 4:
+        return (2, 3, 0, 1)
     if flax_key.endswith("/kernel"):
         return {4: (3, 2, 0, 1), 2: (1, 0)}.get(ndim)
     return None
@@ -74,6 +86,8 @@ def torch_shape(flax_key: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
 
 def _to_torch(flax_key: str, arr: np.ndarray) -> np.ndarray:
     arr = np.asarray(arr)
+    if _transposed_conv(flax_key):
+        arr = arr[::-1, ::-1]
     axes = _kernel_axes(flax_key, arr.ndim)
     return np.ascontiguousarray(arr.transpose(axes) if axes else arr)
 
@@ -105,6 +119,8 @@ def flax_array(flax_key: str, value: np.ndarray,
     axes = _kernel_axes(flax_key, arr.ndim)
     if axes:  # argsort inverts the permutation
         arr = arr.transpose(np.argsort(axes))
+    if _transposed_conv(flax_key):
+        arr = arr[::-1, ::-1]
     shape = _pooled_shape(flax_key, model)
     if shape is not None:
         c, h, w = shape

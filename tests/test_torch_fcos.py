@@ -36,6 +36,14 @@ Tolerances, float32 on both sides:
   same multiple of their jitter: the port's instance norm over p6's two
   values leaves 1.4e-7 of the largest gradient on the adapter's last
   bias, JAX's 1.4e-11.
+  That the gap is float32 rounding is shown by
+  ``tests/torch_float64_grads.py fcos``, which computes this fixture's
+  gradient in one precision on both sides: in float32 the worst gap is
+  4.39e-3 of the tensor's peak (top_p7's bias; the trunk 1.16e-3, the
+  adapter 1.30e-3, the head 3.3e-5, the teacher 1.2e-5), in float64
+  1.62e-11 (top_p7's kernel; every other tensor 4.8e-13 or less). The gap
+  falls by the ratio of the two precisions' rounding, so no port fault
+  lies under it.
 """
 
 import copy

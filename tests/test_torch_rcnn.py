@@ -483,7 +483,7 @@ def test_inference_matches_jax(setup):
 
 
 def test_unported_options_raise():
-    for opts, what in ((["MODEL.MASK_ON", True], "item 9"),
+    for opts, what in ((["MODEL.ROI_HEADS.NAME", "Res5ROIHeads"], "item 10"),
                        (["MODEL.BACKBONE.NAME", "build_resnet_backbone"],
                         "item 10")):
         with pytest.raises(NotImplementedError, match=what):

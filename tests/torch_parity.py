@@ -49,14 +49,16 @@ def jax_model(cfg):
     return build_jax_model(cfg, dtype=jnp.float32)
 
 
-def variable_shapes(model, canvas=(64, 64)):
+def variable_shapes(model, canvas=(64, 64), gt=None):
     """Flat {key: shape} of all the distillator's variables (student,
     teacher and adapter), traced, not computed. The ``sampling`` stream
-    feeds an R-CNN student's samples."""
+    feeds an R-CNN student's samples. ``gt`` (one image on ``canvas``)
+    defaults to one box without masks."""
     images = jnp.zeros((1, *canvas, 3), jnp.float32)
     sizes = jnp.asarray([canvas], jnp.int32)
-    gt = JaxInstances.from_lists([np.asarray([[4.0, 4.0, 40.0, 30.0]])],
-                                 [np.asarray([3])], capacity=2)
+    if gt is None:
+        gt = JaxInstances.from_lists([np.asarray([[4.0, 4.0, 40.0, 30.0]])],
+                                     [np.asarray([3])], capacity=2)
     tree = jax.eval_shape(
         lambda: model.init({"params": jax.random.PRNGKey(0),
                             "sampling": jax.random.PRNGKey(1)},
@@ -67,10 +69,13 @@ def variable_shapes(model, canvas=(64, 64)):
 
 
 def torch_instances(gt) -> BatchedInstances:
-    """The port's container holding the same boxes as a JAX one."""
+    """The port's container holding the same boxes, and masks where the
+    JAX one has them, as a JAX one."""
+    masks = (None if a is None else torch.tensor(np.asarray(a))
+             for a in (gt.masks49, gt.bitmasks, gt.mask_crops))
     return BatchedInstances(torch.tensor(np.asarray(gt.boxes)),
                             torch.tensor(np.asarray(gt.classes)).long(),
-                            torch.tensor(np.asarray(gt.valid)))
+                            torch.tensor(np.asarray(gt.valid)), *masks)
 
 
 def random_weights(shapes, seed=0):
