@@ -45,7 +45,8 @@
    TRAIN_BATCH, TRAIN_STEPS steps, the backbone pre-freeze lifting after
    step 0 and distillation starting at step 3. Every loss is finite,
    loss_distill reaches the student only once distillation is on, K1a and
-   K1b launch 5 times each per step, and the FREEZE_AT stem never moves.
+   K1b launch 5 times each per step, and what FREEZE_AT freezes (the stem
+   and res2) never moves.
    Then steady-state steps are timed (step ms, images/s, peak memory) and
    profiled: device idle share, time by kernel family and by kernel, and
    the device time of the step's forward and optimizer ranges.
@@ -159,6 +160,28 @@
    bbox and segm.
 24. The float32 card-vs-CPU ``train_forward`` of 10 for Mask R-CNN, with
    loss_mask and loss_mask.tea.
+25. RetinaNet Swin-T FPN (the reference's build_retinanet_swint_fpn_
+   backbone at Swin-T's published widths: embed 96, depths (2, 2, 6, 2),
+   heads (3, 6, 12, 24), window 7, MLP ratio 4; stage3-stage5 into the
+   FPN, p6/p7 from p5) inference through ``do_test`` at batch 8: K2 once
+   a batch, finite detections, COCO metrics; one batch's head outputs
+   decoded again with the plain NMS: equal detection sets and keep masks;
+   time per batch, images/s and peak memory.
+26. RetinaNet Swin-T LGD training through ``do_train``, checked and timed
+   as in 5 with AdamW (lr 1e-4, weight decay 0.05, the public Swin
+   detection recipe) and drop-path 0.2 on: every training forward of the
+   trunk gets the step's uniforms, in the shape ``sampling_shapes``
+   names, keeping the share of branches the blocks' rates give; K1a/K1b
+   5 a step; then ``do_test(eval_teacher=True)``, whose trunk forwards get
+   none.
+27. The float32 card-vs-CPU ``train_forward`` of 7 for the RetinaNet
+   Swin-T model with drop-path off.
+28. Mask R-CNN Swin-T FPN (build_swint_fpn_backbone: stage2-stage5 with
+   the max-pool p6) inference as 22: K2 twice and K3 twice a batch, K3 at
+   14x14 held and timed on the batch's own mask ROIs over Swin features.
+29. Mask R-CNN Swin-T LGD training with the seg-mask teacher as 23, with
+   the Swin solver and the drop-path checks of 26.
+30. FCOS Swin-T inference as 25 (the trunk of 25 under FCOS's head).
    The script's wall time is printed before the kernels' line.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -299,6 +322,22 @@ def cuda_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_inference(model, images, sizes, what, card):
+    """``model.inference`` on one staged batch: ms per batch by CUDA
+    events over 5 calls, images/s and the peak memory of those calls."""
+    def infer():
+        model.inference(images, sizes)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    batch_ms = cuda_ms(infer, iters=5)
+    log(f"{what} model.inference, batch {images.shape[0]} at "
+        f"{tuple(images.shape[-2:])}: {batch_ms:.2f} ms = "
+        f"{1000 * images.shape[0] / batch_ms:.2f} images/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+    return batch_ms
 
 
 def bound(n_bytes, n_ops):
@@ -482,19 +521,20 @@ def det_set(dets, b):
     return {tuple(r) for r in rows.cpu().tolist()}
 
 
-def phase_slice(device, card):
-    """R-50 FPN RetinaNet inference through do_test, then one batch again
-    with the plain NMS; returns the kernel's record fields."""
+def phase_slice(device, card, cfg=None, what="RetinaNet"):
+    """RetinaNet inference (``cfg``: the R-50 FPN of ``smoke_cfg()`` by
+    default) through do_test, then one batch again with the plain NMS;
+    returns the path's launches and K2's record fields."""
     from lgd_tpu_torch.data import TestLoader, get_dataset_dicts
     from lgd_tpu_torch.engine.trainer import do_test
     from lgd_tpu_torch.models.distillator import build_model
     from lgd_tpu_torch.models.heads.retinanet import retinanet_inference
     from lgd_tpu_torch.ops import nms
 
-    cfg = smoke_cfg()
+    cfg = cfg or smoke_cfg()
     model = build_model(cfg, dtype=torch.bfloat16, device=device, seed=0)
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"model: R-{cfg.MODEL.RESNETS.DEPTH} FPN RetinaNet, {n_params} "
+    log(f"model: {trunk_name(cfg)} FPN {what}, {n_params} "
         f"parameters, {cfg.TPU.COMPUTE_DTYPE} convolutions")
 
     rec = RecordingModel(model)
@@ -520,7 +560,7 @@ def phase_slice(device, card):
         check(key in res["bbox"], key)
     loader = TestLoader(cfg, get_dataset_dicts("synthetic_mini"), 8)
     canvases = {loader.canvases[b] for b, _ in loader._sched}
-    log(f"do_test: {len(rec.outputs)} batches ({n_images} slots, "
+    log(f"{what} do_test: {len(rec.outputs)} batches ({n_images} slots, "
         f"canvases {sorted(canvases)}), NMS launches {launches}, "
         f"AP {res['bbox']['AP']:.4f}, wall {wall:.2f} s "
         f"= {16 / wall:.2f} images/s incl. host preprocessing and COCO "
@@ -569,13 +609,7 @@ def phase_slice(device, card):
         f"kernel {fmt_ms(split)}), plain {plain_ms:.4f} ms, bound "
         f"{bound_ms:.6f} ms ({bound_by}, {pairs} IoUs) [{card}]")
 
-    def infer():
-        model.inference(images, sizes)
-
-    step_ms = cuda_ms(infer, iters=5)
-    log(f"model.inference, batch {images.shape[0]} at "
-        f"{tuple(images.shape[-2:])}: {step_ms:.2f} ms = "
-        f"{1000 * images.shape[0] / step_ms:.2f} images/s [{card}]")
+    time_inference(model, images, sizes, what, card)
     return path_launches, {"max_abs_err": err, "ms": ms,
                            "plain_ms": plain_ms, "bound_ms": bound_ms,
                            "bound_by": bound_by, "library_ms": None}
@@ -1542,12 +1576,22 @@ KERNEL_FAMILIES = (
     ("K3 ROIAlign", ("roi_align_fwd_kernel", "roi_align_bwd_kernel")),
     ("K4 deformable sampling", ("deform_fwd_kernel", "deform_bwd_kernel")),
     ("K2 NMS", ("nms_mask_kernel", "nms_sweep_kernel")),
+    # the Swin trunk's float32 LayerNorms, forward and backward
+    ("LayerNorm", ("layer_norm", "LayerNorm")),
     # PyTorch's GroupNorm (the FCOS, ATSS and POTO towers): the statistics,
-    # the fused affine and its elementwise lambdas, and the backward's
+    # the fused affine and its elementwise lambdas, and the backward's; a
+    # LayerNorm's backward shares the last names (no Swin model has a
+    # GroupNorm on a timed path)
     ("GroupNorm", ("RowwiseMoments", "GroupNorm", "group_norm",
                    "ComputeFusedParams", "ComputeInternalGradients",
                    "ComputeBackwardFusedParams",
                    "Compute1dBackwardFusedParams", "GammaBetaBackward")),
+    # the Swin window attention's float32 softmax, forward and backward
+    ("softmax", ("softmax", "SoftMax")),
+    # the Swin shifts' static gathers, their scatter-adds, and the
+    # scatter-add of the relative-position bias table's gradient
+    ("index select and add", ("indexSelect", "indexFunc",
+                              "indexing_backward")),
     ("layout NCHW<->NHWC", ("nchwToNhwc", "nhwcToNchw", "AddPadding")),
     ("convolution", ("implicit_gemm", "conv", "fprop", "dgrad", "wgrad",
                      "winograd", "cudnn", "cutlass", "tensorTransform")),
@@ -1601,6 +1645,17 @@ RCNN_LOSSES = tuple(sorted(
     + ["loss_distill"]))
 
 
+def trunk_name(cfg):
+    """The student's trunk as the logs name it: R-<depth>, or Swin-T at
+    its published widths."""
+    if "swint" in cfg.MODEL.BACKBONE.NAME:
+        s = cfg.MODEL.SWINT
+        return (f"Swin-T (embed {s.EMBED_DIM}, depths {tuple(s.DEPTHS)}, "
+                f"heads {tuple(s.NUM_HEADS)}, window {s.WINDOW_SIZE}, "
+                f"drop-path {s.DROP_PATH_RATE})")
+    return f"R-{cfg.MODEL.RESNETS.DEPTH}"
+
+
 def phase_train(device, card, cfg, what, steps, timed, distill_from,
                 per_step, loss_keys, prepare=None):
     """LGD training at full width through do_train (``steps`` steps, the
@@ -1612,6 +1667,7 @@ def phase_train(device, card, cfg, what, steps, timed, distill_from,
     from lgd_tpu_torch.data import TrainLoader
     from lgd_tpu_torch.engine.train_step import (
         batch_to_device,
+        freeze_gates,
         make_train_step,
         phase,
     )
@@ -1627,7 +1683,7 @@ def phase_train(device, card, cfg, what, steps, timed, distill_from,
     if prepare is not None:
         prepare(model)
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"train model: R-{cfg.MODEL.RESNETS.DEPTH} FPN {what} + "
+    log(f"train model: {trunk_name(cfg)} FPN {what} + "
         f"{cfg.MODEL.DISTILLATOR.TEACHER.NR_TRANSFORMER_HEADS}-head teacher "
         f"({cfg.TPU.MAX_INSTANCES + 1} tokens), {n_params} parameters, "
         f"{cfg.TPU.COMPUTE_DTYPE} student, float32 teacher, batch {batch}")
@@ -1649,14 +1705,21 @@ def phase_train(device, card, cfg, what, steps, timed, distill_from,
         return loss
 
     model.train_forward, model.distill_loss = recording_forward, probing_distill
-    stem = model.student.bottom_up.stem_conv1.weight.detach().clone()
+    # the FREEZE_AT gates: a ResNet's stem and res2 never move, a Swin
+    # trunk has nothing frozen
+    trunk = dict(model.student.bottom_up.named_parameters())
+    gates = freeze_gates(model.student, cfg.MODEL.BACKBONE.FREEZE_AT)
+    frozen = {n: p.detach().clone() for n, p in trunk.items()
+              if gates["bottom_up." + n] == 0.0}
     # res3's first block trains once the pre-freeze lifts: its 1x1 conv,
     # and a deformable unit's offset conv, which learns through K4's
-    # backward
-    trunk = dict(model.student.bottom_up.named_parameters())
+    # backward; on Swin the patch embed and a stage3 attention
     moving = {n: trunk[n].detach().clone() for n in (
         "res3_0.conv1.weight", "res3_0.conv2.offset_conv.weight",
-        "res3_0.conv2.offset_conv.bias") if n in trunk}
+        "res3_0.conv2.offset_conv.bias", "patch_embed.weight",
+        "stage3_block0.attn.qkv.weight",
+        "stage3_block1.attn.relative_position_bias_table") if n in trunk}
+    check(bool(moving), "no trunk parameter to watch")
     loader = TrainLoader(cfg)
     zero_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -1681,8 +1744,9 @@ def phase_train(device, card, cfg, what, steps, timed, distill_from,
     check(launches == expect_launches(per_step, steps),
           f"{launches} launches in {steps} steps, expected {per_step} per "
           f"step")
-    check(torch.equal(model.student.bottom_up.stem_conv1.weight, stem),
-          "the FREEZE_AT stem conv moved")
+    for name, before in frozen.items():
+        check(torch.equal(trunk[name], before),
+              f"{name} moved, which FREEZE_AT freezes")
     for name, before in moving.items():
         check(not torch.equal(trunk[name], before),
               f"{name} never trained after the pre-freeze")
@@ -1691,8 +1755,8 @@ def phase_train(device, card, cfg, what, steps, timed, distill_from,
         f"the student from step {distill_from} (|grad p3| "
         f"{float(distill_grads[distill_from - 1][1]):.3e} at step "
         f"{distill_from - 1}, {float(distill_grads[distill_from][1]):.3e} "
-        f"at step {distill_from}); stem unchanged, {', '.join(moving)} "
-        f"moved; peak memory "
+        f"at step {distill_from}); {len(frozen)} frozen trunk tensors "
+        f"unchanged, {', '.join(moving)} moved; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     for i in (0, steps - 1):
         log(f"  step {i}: " + ", ".join(
@@ -1933,13 +1997,7 @@ def phase_rcnn_inference(device, card):
         boxes_s, valid_s, thr), 2, 1)
     log(f"K2's plain version at the RPN pool: {plain_ms:.4f} ms [{card}]")
 
-    def infer():
-        model.inference(images, sizes)
-
-    step_ms = cuda_ms(infer, iters=5)
-    log(f"R-CNN model.inference, batch {images.shape[0]} at "
-        f"{tuple(images.shape[-2:])}: {step_ms:.2f} ms = "
-        f"{1000 * images.shape[0] / step_ms:.2f} images/s [{card}]")
+    time_inference(model, images, sizes, "R-CNN", card)
     del model, rec
     torch.cuda.empty_cache()
     return launches
@@ -2188,7 +2246,7 @@ class CaptureK3Backward:
         RA.roi_align_bwd = self.saved
 
 
-def phase_mask_rcnn_inference(device, card):
+def phase_mask_rcnn_inference(device, card, cfg=None, what="Mask R-CNN"):
     """Mask R-CNN R-50 FPN inference through do_test at batch 8: K2 twice
     and K3 twice per batch (the box head's 7x7 and the mask head's 14x14
     pooling), 1..100 finite detections per image with (8, 100, 28, 28)
@@ -2197,16 +2255,16 @@ def phase_mask_rcnn_inference(device, card):
     detection sets and equal masks of matched detections; K3 held at
     14x14 against the plain version on that batch's own mask ROIs, in
     bf16 and in float32 (the levels cast), and timed. Returns the path's
-    launches."""
+    launches. ``cfg`` (``mask_rcnn_cfg()`` by default) names the trunk."""
     from lgd_tpu_torch.data import TestLoader, get_dataset_dicts
     from lgd_tpu_torch.engine.trainer import do_test
     from lgd_tpu_torch.models.distillator import build_model
     from lgd_tpu_torch.ops import roi_align as RA
 
-    cfg = mask_rcnn_cfg()
+    cfg = cfg or mask_rcnn_cfg()
     model = build_model(cfg, dtype=torch.bfloat16, device=device, seed=0)
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"model: R-{cfg.MODEL.RESNETS.DEPTH} FPN Mask R-CNN, {n_params} "
+    log(f"model: {trunk_name(cfg)} FPN {what}, {n_params} "
         f"parameters, {cfg.TPU.COMPUTE_DTYPE} convolutions")
 
     rec = RecordingModel(model)
@@ -2228,7 +2286,7 @@ def phase_mask_rcnn_inference(device, card):
     for t in ("bbox", "segm"):
         for key in ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR@100"):
             check(key in res[t], (t, key))
-    log(f"Mask R-CNN do_test: {n} batches, launches {launches}, bbox AP "
+    log(f"{what} do_test: {n} batches, launches {launches}, bbox AP "
         f"{res['bbox']['AP']:.4f} AP50 {res['bbox']['AP50']:.4f}, segm AP "
         f"{res['segm']['AP']:.4f} AP50 {res['segm']['AP50']:.4f}, wall "
         f"{wall:.2f} s = {16 / wall:.2f} images/s incl. host preprocessing "
@@ -2280,35 +2338,31 @@ def phase_mask_rcnn_inference(device, card):
         time_k3([f.to(dtype) for f in levels], index, coords, MASK_OUT, None,
                 "inference mask ROIs of one batch", card)
 
-    def infer():
-        model.inference(images, sizes)
-
-    step_ms = cuda_ms(infer, iters=5)
-    log(f"Mask R-CNN model.inference, batch {images.shape[0]} at "
-        f"{tuple(images.shape[-2:])}: {step_ms:.2f} ms = "
-        f"{1000 * images.shape[0] / step_ms:.2f} images/s [{card}]")
+    time_inference(model, images, sizes, what, card)
     del model, rec, pooled, levels
     torch.cuda.empty_cache()
     return launches
 
 
-def phase_mask_rcnn_training(device, card):
+def phase_mask_rcnn_training(device, card, cfg=None,
+                             what="Mask R-CNN, seg-mask teacher",
+                             prepare=None):
     """Mask R-CNN LGD training through do_train at batch 16 on the
     800x1344 canvases with the seg-mask teacher, distillation from step 2:
     K1a/K1b 5, K2 2 and K3 forward and backward 4 each per step (7x7 and
     14x14 in the student's and the teacher's pass); K3 at 14x14 held
     forward and backward and timed on the third step's own mask ROIs, the
     student's bf16 levels and the teacher's float32 ones; then
-    do_test(eval_teacher=True), bbox and segm. Returns the launches of the
-    do_train run."""
-    from lgd_tpu_torch.ops import roi_align as RA
-
-    cfg = mask_train_cfg()
+    do_test(eval_teacher=True), bbox and segm. ``cfg`` (``mask_train_cfg()``
+    by default) names the trunk and the steps; ``prepare`` is
+    ``phase_train``'s. Returns the launches of the do_train run."""
+    cfg = cfg or mask_train_cfg()
     step = {"K1a": 5, "K1b": 5, "K2": 2, "K3 forward": 4, "K3 backward": 4}
     with CaptureK3Backward(MASK_OUT, after=4, count=2) as captured:
         model, train = phase_train(
-            device, card, cfg, "Mask R-CNN, seg-mask teacher",
-            MASK_TRAIN_STEPS, MASK_TIMED_STEPS, 2, step, MASK_LOSSES)
+            device, card, cfg, what, cfg.SOLVER.MAX_ITER, MASK_TIMED_STEPS,
+            cfg.MODEL.DISTILLATOR.PRE_NONDISTILL_ITERS, step, MASK_LOSSES,
+            prepare)
     # one step's two: the student's levels in its compute dtype, the
     # teacher's in float32
     dtypes = {inputs[3].dtype for inputs in captured.inputs}
@@ -2494,10 +2548,7 @@ def phase_dcn_inference(device, card, what, opts):
         f"K2 and the plain NMS) give equal detection sets (largest "
         f"differences: box {max(w[0] for w in worst):.3e} px, score "
         f"{max(w[1] for w in worst):.3e})")
-    step_ms = cuda_ms(lambda: model.inference(images, sizes), iters=5)
-    log(f"{what} model.inference, batch {images.shape[0]} at "
-        f"{tuple(images.shape[-2:])}: {step_ms:.2f} ms = "
-        f"{1000 * images.shape[0] / step_ms:.2f} images/s [{card}]")
+    time_inference(model, images, sizes, what, card)
     del model, rec
     torch.cuda.empty_cache()
     return launches
@@ -3155,19 +3206,20 @@ def shift_train_cfg(arch, steps, distill_from, opts=()):
     return fcos_cfg(arch, [*lgd_train_opts(steps, distill_from), *opts])
 
 
-def phase_shift_inference(device, card, arch, what):
+def phase_shift_inference(device, card, arch, what, cfg=None):
     """An anchor-free distillator (FCOS, ATSS or POTO) at full width
-    through do_test, K2 once per batch; one batch's head outputs decoded
-    again with the plain NMS: equal detection sets; POTO's once more with
+    (``cfg``: the R-50 FPN of ``fcos_cfg(arch)`` by default) through
+    do_test, K2 once per batch; one batch's head outputs decoded again
+    with the plain NMS: equal detection sets; POTO's once more with
     NMS_TYPE "null": no K2 launch. Returns the path's launches."""
     from lgd_tpu_torch.engine.trainer import do_test
     from lgd_tpu_torch.models.distillator import build_model
     from lgd_tpu_torch.models.heads.poto import poto_inference
 
-    cfg = fcos_cfg(arch)
+    cfg = cfg or fcos_cfg(arch)
     model = build_model(cfg, dtype=torch.bfloat16, device=device, seed=0)
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"model: R-{cfg.MODEL.RESNETS.DEPTH} FPN {what}, {n_params} "
+    log(f"model: {trunk_name(cfg)} FPN {what}, {n_params} "
         f"parameters, {cfg.TPU.COMPUTE_DTYPE} convolutions, GroupNorm towers")
 
     rec = RecordingModel(model)
@@ -3221,13 +3273,7 @@ def phase_shift_inference(device, card, arch, what):
         log("POTO with NMS_TYPE null: 100 finite detections per image, no "
             "kernel launched")
 
-    def infer():
-        model.inference(images, sizes)
-
-    batch_ms = cuda_ms(infer, iters=5)
-    log(f"{what} model.inference, batch {images.shape[0]} at "
-        f"{tuple(images.shape[-2:])}: {batch_ms:.2f} ms = "
-        f"{1000 * images.shape[0] / batch_ms:.2f} images/s [{card}]")
+    time_inference(model, images, sizes, what, card)
     del model, rec
     torch.cuda.empty_cache()
     return launches
@@ -3322,6 +3368,134 @@ def phase_shift_training(device, card, arch, what, steps, timed,
     return model, launches
 
 
+SWIN_TRAIN_STEPS = 4    # RetinaNet Swin-T do_train steps with the checks
+SWIN_TIMED_STEPS = 3
+# the public Swin detection recipe (microsoft/Swin-Transformer-Object-
+# Detection, configs/swin/*_adamw_*): AdamW, lr 1e-4, weight decay 0.05
+SWIN_SOLVER = ["MODEL.DISTILLATOR.STUDENT.SOLVER.OPTIMIZER", "AdamW",
+               "MODEL.DISTILLATOR.STUDENT.SOLVER.BASE_LR", 1e-4,
+               "MODEL.DISTILLATOR.STUDENT.SOLVER.WEIGHT_DECAY", 0.05]
+
+
+def swin_opts(name, stages):
+    """The Swin-T trunk at its published widths (the config's defaults:
+    embed 96, depths (2, 2, 6, 2), heads (3, 6, 12, 24), window 7, MLP
+    ratio 4, drop-path 0.2) under ``name``, its ``stages`` into the FPN."""
+    return ["MODEL.BACKBONE.NAME", name, "MODEL.SWINT.OUT_FEATURES", stages,
+            "MODEL.FPN.IN_FEATURES", stages]
+
+
+def swin_retinanet_cfg(opts=()):
+    """RetinaNet Swin-T FPN LGD (the reference's
+    build_retinanet_swint_fpn_backbone: stage3-stage5 into the FPN, p6/p7
+    from p5) on the RetinaNet training slice, with the Swin solver,
+    SWIN_TRAIN_STEPS steps and distillation from step 2."""
+    return train_cfg([*swin_opts("build_retinanet_swint_fpn_backbone",
+                                 ["stage3", "stage4", "stage5"]),
+                      *SWIN_SOLVER, "SOLVER.MAX_ITER", SWIN_TRAIN_STEPS,
+                      "MODEL.DISTILLATOR.PRE_NONDISTILL_ITERS", 2, *opts])
+
+
+def swin_mask_rcnn_cfg(opts=()):
+    """Mask R-CNN Swin-T FPN LGD (the reference's build_swint_fpn_backbone:
+    stage2-stage5 into the FPN with the max-pool p6) on the Mask R-CNN
+    training slice with the seg-mask teacher and the Swin solver."""
+    return mask_train_cfg([*swin_opts("build_swint_fpn_backbone",
+                                      ["stage2", "stage3", "stage4",
+                                       "stage5"]), *SWIN_SOLVER, *opts])
+
+
+def swin_fcos_cfg():
+    """FCOS on the Swin-T trunk of ``swin_retinanet_cfg``."""
+    return fcos_cfg("DistillatorFCOS", swin_opts(
+        "build_retinanet_swint_fpn_backbone", ["stage3", "stage4", "stage5"]))
+
+
+def draw_patch_embed_bias(model, seed=0):
+    """The Swin patch embed's bias drawn truncated-normal(0.02), as a
+    pretrained trunk has one. At flax's zero init the canvas padding's
+    patch tokens are exactly zero, every LayerNorm after them sees a
+    variance of 0 and its backward multiplies their gradient by 1 /
+    sqrt(1e-6): the bf16 gradient reached 1e38 by stage3 and overflowed
+    in the first step. A nonzero bias gives those tokens a spread from
+    the first LayerNorm on."""
+    bias = model.student.bottom_up.patch_embed.bias
+    with torch.no_grad():
+        torch.nn.init.trunc_normal_(
+            bias, 0.0, 0.02, -0.04, 0.04,
+            generator=torch.Generator(bias.device).manual_seed(seed))
+
+
+class DropPathProbe:
+    """Wraps a Swin trunk's ``forward``: records for each call whether it
+    got drop-path uniforms, checks their shape against ``sampling_shapes``
+    and keeps the share of residual branches they keep."""
+
+    def __init__(self, model, batch):
+        trunk = model.student.bottom_up
+        want = model.sampling_shapes(batch, (800, 1344), 1).get("drop_path")
+        check(want == (trunk.num_drop_path_draws, batch),
+              f"sampling_shapes asks for drop-path uniforms {want}")
+        rates = torch.tensor([m.rate for m in trunk.modules()
+                              if type(m).__name__ == "DropPath"])
+        self.expect_kept = float((1 - rates).mean())
+        self.calls, self.kept = [], []
+        forward = trunk.forward
+
+        def probed(x, drop_path=None):
+            self.calls.append(drop_path is not None)
+            if drop_path is not None:
+                check(tuple(drop_path.shape) == (len(rates), x.shape[0]),
+                      tuple(drop_path.shape))
+                keep = drop_path < (1 - rates.to(drop_path.device))[:, None]
+                self.kept.append(float(keep.float().mean()))
+            return forward(x, drop_path)
+
+        trunk.forward = probed
+
+
+def phase_swin_training(device, card, cfg, what, per_step=None):
+    """An LGD training slice on the Swin-T trunk (its patch embed's bias
+    drawn, ``draw_patch_embed_bias``), drop-path on, then
+    do_test(eval_teacher=True): RetinaNet through ``phase_train`` (K1a/K1b
+    ``per_step``), Mask R-CNN (``MASK_ON``) through
+    ``phase_mask_rcnn_training``. Every training forward of the trunk
+    (do_train's steps, the warm-up, the timed and the two profiled steps)
+    gets the step's uniforms, and every forward of the evaluation after
+    them none. Returns the do_train run's launches."""
+    probe = []
+
+    def prepare(model):
+        draw_patch_embed_bias(model)
+        probe.append(DropPathProbe(model, cfg.SOLVER.IMS_PER_BATCH))
+
+    steps = cfg.SOLVER.MAX_ITER
+    if cfg.MODEL.MASK_ON:
+        timed = MASK_TIMED_STEPS
+        launches = phase_mask_rcnn_training(device, card, cfg, what, prepare)
+    else:
+        timed = SWIN_TIMED_STEPS
+        model, launches = phase_train(
+            device, card, cfg, what, steps, timed,
+            cfg.MODEL.DISTILLATOR.PRE_NONDISTILL_ITERS, per_step,
+            RETINANET_LOSSES, prepare)
+        phase_eval_teacher(model, cfg, device, card, {"K1a": 5, "K2": 1})
+        del model
+        torch.cuda.empty_cache()
+    p, n_train = probe[0], steps + 1 + timed + 2
+    check(p.calls[:n_train] == [True] * n_train and len(p.calls) > n_train
+          and not any(p.calls[n_train:]),
+          f"drop-path uniforms in the trunk's calls: {p.calls}")
+    kept = sum(p.kept) / len(p.kept)
+    check(abs(kept - p.expect_kept) < 0.05, (kept, p.expect_kept))
+    log(f"{what}: drop-path uniforms in all {n_train} training forwards of "
+        f"the trunk, none in its {len(p.calls) - n_train} evaluation "
+        f"forwards; residual branches kept {kept:.4f} (expected "
+        f"{p.expect_kept:.4f} over the blocks' rates 0-"
+        f"{cfg.MODEL.SWINT.DROP_PATH_RATE}) [{card}]")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -3398,6 +3572,20 @@ def main():
             2)
         del model
         torch.cuda.empty_cache()
+    paths["RetinaNet Swin-T inference"], _ = phase_slice(
+        device, card, swin_retinanet_cfg(), "RetinaNet Swin-T")
+    paths["RetinaNet Swin-T training"] = phase_swin_training(
+        device, card, swin_retinanet_cfg(), "RetinaNet Swin-T",
+        {"K1a": 5, "K1b": 5})
+    phase_card_vs_cpu(device, ["MODEL.SWINT.DROP_PATH_RATE", 0.0],
+                      make_cfg=swin_retinanet_cfg)
+    paths["Mask R-CNN Swin-T inference"] = phase_mask_rcnn_inference(
+        device, card, swin_mask_rcnn_cfg(), "Mask R-CNN Swin-T")
+    paths["Mask R-CNN Swin-T training"] = phase_swin_training(
+        device, card, swin_mask_rcnn_cfg(),
+        "Mask R-CNN Swin-T, seg-mask teacher")
+    paths["FCOS Swin-T inference"] = phase_shift_inference(
+        device, card, "DistillatorFCOS", "FCOS Swin-T", swin_fcos_cfg())
     for name, launches in paths.items():
         log(f"launches on the {name} path: {launches}")
     for name in records:

@@ -38,7 +38,9 @@ class TrainState:
 
 def _frozen(name: str, freeze_at: int) -> bool:
     """detectron2 BACKBONE.FREEZE_AT on a student parameter name: 1 freezes
-    the stem, k freezes the stem and res2..res{k}; only the bottom-up."""
+    the stem, k freezes the stem and res2..res{k}; only the bottom-up. A
+    Swin trunk's names (``patch_embed``, ``stage<s>_...``) match neither,
+    so every Swin parameter trains, as the JAX package's gates have it."""
     parts = name.split(".")
     if parts[0] != "bottom_up":
         return False

@@ -13,7 +13,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..layers import Conv2d, feature_strides
-from .resnet import DeformConvUnit
+from .resnet import DeformConvUnit, build_resnet
+from .swin import SwinTransformer, build_swint
 
 
 class FPN(nn.Module):
@@ -78,13 +79,17 @@ class FPN(nn.Module):
 
 def build_fpn(cfg, top_block: str, dtype: torch.dtype,
               top_block_in_feature: str = "res5") -> FPN:
-    """The FPN over the ResNet trunk's MODEL.FPN.IN_FEATURES; the p6p7 top
-    is fed from ``top_block_in_feature``: res5 (RetinaNet) or p5 (the
-    cvpods FCOS, ATSS and POTO, lgd_tpu/models/heads/fcos.py:122-125)."""
+    """The FPN over the trunk's MODEL.FPN.IN_FEATURES (ResNet res2-res5,
+    or Swin stage2-stage5 at EMBED_DIM * 2**i channels); the p6p7 top is
+    fed from ``top_block_in_feature``: res5 (RetinaNet on ResNet) or p5
+    (RetinaNet on Swin, and the cvpods FCOS, ATSS and POTO,
+    lgd_tpu/models/heads/fcos.py:109-125)."""
     in_feats = tuple(cfg.MODEL.FPN.IN_FEATURES)
     res2 = cfg.MODEL.RESNETS.RES2_OUT_CHANNELS
+    embed = cfg.MODEL.SWINT.EMBED_DIM
     out_channels = cfg.MODEL.FPN.OUT_CHANNELS
     channels = {f"res{i + 2}": res2 * 2 ** i for i in range(4)}
+    channels.update({f"stage{i + 2}": embed * 2 ** i for i in range(4)})
     channels.update({f"p{i}": out_channels for i in range(2, 8)})
     return FPN(in_features=in_feats,
                in_channels=[channels[f] for f in in_feats],
@@ -95,19 +100,50 @@ def build_fpn(cfg, top_block: str, dtype: torch.dtype,
                dtype=dtype)
 
 
+def build_trunk(cfg, top_block: str, dtype: torch.dtype,
+                resnet_top_in: str = "res5"):
+    """(bottom_up, fpn) of a student: the Swin-T trunk when
+    MODEL.BACKBONE.NAME names one (its p6/p7 from p5, JAX
+    lgd_tpu/models/heads/retinanet.py:99-105), else the ResNet trunk with
+    the p6/p7 top fed from ``resnet_top_in``."""
+    if "swint" in cfg.MODEL.BACKBONE.NAME:
+        return build_swint(cfg, dtype=dtype), build_fpn(cfg, top_block,
+                                                        dtype, "p5")
+    return build_resnet(cfg, dtype=dtype), build_fpn(cfg, top_block, dtype,
+                                                     resnet_top_in)
+
+
+def bottom_up_features(bottom_up: nn.Module, x: torch.Tensor,
+                       drop_path=None) -> Dict[str, torch.Tensor]:
+    """The trunk's features of normalized images; ``drop_path`` holds the
+    Swin drop-paths' uniforms in training (None: no drop, as at
+    inference)."""
+    if drop_path is None:
+        return bottom_up(x)
+    return bottom_up(x, drop_path)
+
+
 def init_trunk_(student: nn.Module, generator: torch.Generator):
-    """Random weights of a student's ``bottom_up`` ResNet and ``fpn``, drawn
-    like the flax initializers: lecun-normal backbone convs, glorot-uniform
-    FPN convs with zero biases; FrozenBN stays the identity. Deformable
-    units then zero their offset convs and draw their he-normal weights."""
-    for m in student.bottom_up.modules():
-        if isinstance(m, Conv2d):
-            nn.init.normal_(m.weight, 0.0, 1.0 / math.sqrt(
-                m.weight[0].numel()), generator=generator)
-    for m in student.bottom_up.modules():
-        if isinstance(m, DeformConvUnit):
-            m.init_weights_(generator)
+    """Random weights of a student's ``bottom_up`` and ``fpn``, drawn like
+    the flax initializers: a Swin trunk's own (``init_weights_``), or
+    lecun-normal ResNet convs with FrozenBN the identity and deformable
+    units' zero offset convs and he-normal weights; glorot-uniform FPN
+    convs with zero biases."""
+    if isinstance(student.bottom_up, SwinTransformer):
+        student.bottom_up.init_weights_(generator)
+    else:
+        _init_resnet_(student.bottom_up, generator)
     for m in student.fpn.modules():
         if isinstance(m, Conv2d):
             nn.init.xavier_uniform_(m.weight, generator=generator)
             nn.init.zeros_(m.bias)
+
+
+def _init_resnet_(bottom_up: nn.Module, generator: torch.Generator):
+    for m in bottom_up.modules():
+        if isinstance(m, Conv2d):
+            nn.init.normal_(m.weight, 0.0, 1.0 / math.sqrt(
+                m.weight[0].numel()), generator=generator)
+    for m in bottom_up.modules():
+        if isinstance(m, DeformConvUnit):
+            m.init_weights_(generator)

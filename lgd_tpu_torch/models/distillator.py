@@ -130,9 +130,28 @@ class BaseDistillator(nn.Module):
 
     def sampling_shapes(self, batch_size: int, padded_hw,
                         num_gt: int) -> Dict[str, Dict[str, tuple]]:
-        """The uniforms ``train_forward`` takes, by name and shape: none
-        unless the student samples."""
+        """The uniforms ``train_forward`` takes, by name and shape: a Swin
+        trunk's drop-paths', if any; an R-CNN student's samples come
+        first."""
+        return self._drop_path_shapes(batch_size)
+
+    def _drop_path_shapes(self, batch_size: int) -> Dict[str, tuple]:
+        """``drop_path``: (2 * sum(depths), B), two uniforms per Swin block
+        and image, when the student's trunk is Swin with a positive
+        DROP_PATH_RATE. The JAX package runs the student with train=True
+        in every train_forward, so drop-path is on in training
+        (lgd_tpu/models/distillator.py:164,210,255,296,339)."""
+        trunk = self.student.bottom_up
+        if getattr(trunk, "drop_path_rate", 0.0) > 0.0:
+            return {"drop_path": (trunk.num_drop_path_draws, batch_size)}
         return {}
+
+    def _student_features(self, images: torch.Tensor,
+                          image_sizes: torch.Tensor, uniforms=None):
+        """The student's FPN features in training, with the drop-paths'
+        uniforms when ``sampling_shapes`` asked for them."""
+        drop_path = None if uniforms is None else uniforms.get("drop_path")
+        return self.student(images, image_sizes, drop_path)[1]
 
     def distill_loss(self, stu_feats: Dict[str, torch.Tensor],
                      tea_feats: Dict[str, torch.Tensor],
@@ -175,11 +194,11 @@ class DistillatorRetinaNet(BaseDistillator):
         model's device; image_sizes (B, 2) (h, w); gt on the same device.
         Returns (losses incl. '.tea' and 'loss_distill', new normalizer):
         the normalizer goes through the student losses, then the teacher's
-        (lgd_tpu/models/distillator.py:153-180). RetinaNet samples nothing:
-        ``uniforms`` is unused."""
+        (lgd_tpu/models/distillator.py:153-180). ``uniforms`` holds the
+        Swin drop-paths' uniforms, if ``sampling_shapes`` names them."""
         padded_hw = tuple(images.shape[-2:])
         anchors, _ = self.anchors(padded_hw, images.device)
-        _, feats = self.student(images, image_sizes)
+        feats = self._student_features(images, image_sizes, uniforms)
         tea_feats, _, _ = self.teacher(gt, feats, padded_hw)
         # the student's head scores both pyramids in two separate passes
         logits, deltas = self.student.predict(self._head_features(feats))
@@ -258,9 +277,11 @@ class DistillatorGeneralizedRCNN(BaseDistillator):
     def sampling_shapes(self, batch_size: int, padded_hw,
                         num_gt: int) -> Dict[str, Dict[str, tuple]]:
         """The student's uniforms for its pass over its own features, then
-        for its pass over the teacher's."""
+        for its pass over the teacher's, then a Swin trunk's drop-paths'
+        for its one forward."""
         shapes = self.student.sampling_shapes(batch_size, padded_hw, num_gt)
-        return {"student": shapes, "teacher": shapes}
+        return {"student": shapes, "teacher": shapes,
+                **self._drop_path_shapes(batch_size)}
 
     def train_forward(self, images: torch.Tensor, image_sizes: torch.Tensor,
                       gt: BatchedInstances, distill_flag: float,
@@ -268,10 +289,10 @@ class DistillatorGeneralizedRCNN(BaseDistillator):
                       uniforms: Dict[str, Dict[str, torch.Tensor]]):
         """One LGD training forward (as DistillatorRetinaNet's); the loss
         normalizer passes through unchanged. ``uniforms`` holds the
-        sample's uniforms of both student passes, shaped by
-        ``sampling_shapes``."""
+        sample's uniforms of both student passes, and a Swin trunk's
+        drop-paths', shaped by ``sampling_shapes``."""
         padded_hw = tuple(images.shape[-2:])
-        _, feats = self.student(images, image_sizes)
+        feats = self._student_features(images, image_sizes, uniforms)
         losses = self.student.predict(feats, image_sizes, gt,
                                       uniforms["student"])
         tea_feats, _, _ = self.teacher(gt, feats, padded_hw)
@@ -326,10 +347,10 @@ class _ShiftBasedDistillator(BaseDistillator):
         """One LGD training forward, as DistillatorRetinaNet's: the student
         head scores the student's and the teacher's pyramids in two
         separate passes, both against the targets of the student's pass.
-        Nothing is sampled: ``uniforms`` is unused."""
+        ``uniforms`` holds the Swin drop-paths' uniforms, if any."""
         padded_hw = tuple(images.shape[-2:])
         shifts = self.shifts(padded_hw, images.device)
-        _, feats = self.student(images, image_sizes)
+        feats = self._student_features(images, image_sizes, uniforms)
         tea_feats, _, _ = self.teacher(gt, feats, padded_hw)
         pred = self.student.predict(self._head_features(feats))
         pred_tea = self.student.predict(self._head_features(tea_feats))

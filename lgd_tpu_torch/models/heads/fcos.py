@@ -24,8 +24,7 @@ from ...ops.nms import batched_nms_mask, topk_detections
 from ...ops.topk import topk_flat_pairs, topk_stable
 from ...structures import BatchedDetections, BatchedInstances, Shift2BoxTransform
 from ...structures import boxes as box_ops
-from ..backbones.fpn import build_fpn, init_trunk_
-from ..backbones.resnet import build_resnet
+from ..backbones.fpn import bottom_up_features, build_trunk, init_trunk_
 from ..layers import Conv2d, GroupNorm32, Scale, normalize_images
 from .anchors import ShiftGenerator, feature_grid_sizes
 from .retinanet import permute_to_n_hwa_k
@@ -93,9 +92,10 @@ class FCOSHead(nn.Module):
 
 
 class FCOSCT(nn.Module):
-    """Student detector: ResNet, an FPN whose p6/p7 come from p5 (cvpods;
-    lgd_tpu/models/heads/fcos.py:122-125), and ``predict``, split like the
-    reference FCOSCT so that a distillator drives the head itself."""
+    """Student detector: ResNet or Swin-T, an FPN whose p6/p7 come from p5
+    (cvpods; lgd_tpu/models/heads/fcos.py:109-125), and ``predict``, split
+    like the reference FCOSCT so that a distillator drives the head
+    itself."""
 
     centerness = True
 
@@ -104,12 +104,8 @@ class FCOSCT(nn.Module):
         fcos = cfg.MODEL.FCOS
         self.in_features = tuple(fcos.IN_FEATURES)
         self.num_classes = fcos.NUM_CLASSES
-        if "swint" in cfg.MODEL.BACKBONE.NAME:
-            raise NotImplementedError(
-                "the Swin-T backbone comes with the Swin slice (ROADMAP.md, "
-                "queue item 11)")
-        self.bottom_up = build_resnet(cfg, dtype=dtype)
-        self.fpn = build_fpn(cfg, "p6p7", dtype, top_block_in_feature="p5")
+        self.bottom_up, self.fpn = build_trunk(cfg, "p6p7", dtype,
+                                               resnet_top_in="p5")
         self.head = FCOSHead(
             num_classes=self.num_classes, num_convs=fcos.NUM_CONVS,
             num_levels=len(self.in_features), prior_prob=fcos.PRIOR_PROB,
@@ -121,10 +117,14 @@ class FCOSCT(nn.Module):
         self.pixel_mean = tuple(cfg.MODEL.PIXEL_MEAN)
         self.pixel_std = tuple(cfg.MODEL.PIXEL_STD)
 
-    def forward(self, images: torch.Tensor, image_sizes: torch.Tensor):
-        """-> (raw bottom-up features, FPN features), both dicts."""
-        raw = self.bottom_up(normalize_images(images, image_sizes,
-                                              self.pixel_mean, self.pixel_std))
+    def forward(self, images: torch.Tensor, image_sizes: torch.Tensor,
+                drop_path=None):
+        """-> (raw bottom-up features, FPN features), both dicts;
+        ``drop_path``: a Swin trunk's drop-path uniforms in training."""
+        raw = bottom_up_features(
+            self.bottom_up, normalize_images(images, image_sizes,
+                                             self.pixel_mean, self.pixel_std),
+            drop_path)
         return raw, self.fpn(raw)
 
     def predict(self, features: List[torch.Tensor]):

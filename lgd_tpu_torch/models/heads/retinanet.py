@@ -22,8 +22,7 @@ from ...ops.nms import batched_nms_mask, topk_detections
 from ...ops.topk import topk_flat_pairs
 from ...structures import BatchedDetections, BatchedInstances, Box2BoxTransform
 from ...structures import boxes as box_ops
-from ..backbones.fpn import build_fpn, init_trunk_
-from ..backbones.resnet import build_resnet
+from ..backbones.fpn import bottom_up_features, build_trunk, init_trunk_
 from ..layers import Conv2d, feature_strides, normalize_images
 from .anchors import AnchorGenerator, feature_grid_sizes
 
@@ -75,12 +74,7 @@ class RetinaNetCT(nn.Module):
         super().__init__()
         self.in_features = tuple(cfg.MODEL.RETINANET.IN_FEATURES)
         self.num_classes = cfg.MODEL.RETINANET.NUM_CLASSES
-        if "swint" in cfg.MODEL.BACKBONE.NAME:
-            raise NotImplementedError(
-                "the Swin-T backbone comes with the Swin slice (ROADMAP.md, "
-                "queue item 11)")
-        self.bottom_up = build_resnet(cfg, dtype=dtype)
-        self.fpn = build_fpn(cfg, "p6p7", dtype)
+        self.bottom_up, self.fpn = build_trunk(cfg, "p6p7", dtype)
         num_anchors = (len(cfg.MODEL.ANCHOR_GENERATOR.SIZES[0])
                        * len(cfg.MODEL.ANCHOR_GENERATOR.ASPECT_RATIOS[0]))
         self.head = RetinaNetHead(
@@ -99,9 +93,13 @@ class RetinaNetCT(nn.Module):
         return normalize_images(images, image_sizes, self.pixel_mean,
                                 self.pixel_std)
 
-    def forward(self, images: torch.Tensor, image_sizes: torch.Tensor):
-        """-> (raw bottom-up features, FPN features), both dicts."""
-        raw = self.bottom_up(self.normalize(images, image_sizes))
+    def forward(self, images: torch.Tensor, image_sizes: torch.Tensor,
+                drop_path=None):
+        """-> (raw bottom-up features, FPN features), both dicts;
+        ``drop_path``: a Swin trunk's drop-path uniforms in training."""
+        raw = bottom_up_features(self.bottom_up,
+                                 self.normalize(images, image_sizes),
+                                 drop_path)
         return raw, self.fpn(raw)
 
     def predict(self, features: List[torch.Tensor]):

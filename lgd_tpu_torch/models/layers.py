@@ -117,6 +117,42 @@ class Scale(nn.Module):
         return x * self.scale.to(x.dtype)
 
 
+class LayerNorm32(nn.LayerNorm):
+    """LayerNorm over the last axis as flax's ``nn.LayerNorm(dtype=float32)``
+    computes it in the Swin trunk (lgd_tpu/models/backbones/swin.py): the
+    input goes up to float32, is normalized there with the float32 affine
+    ``weight`` and ``bias``, and goes back down to the input's dtype. The
+    epsilon is flax's 1e-6, not torch's 1e-5."""
+
+    def __init__(self, num_features: int, eps: float = 1e-6):
+        super().__init__(num_features, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(x.dtype)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth per sample (lgd_tpu/models/backbones/swin.py:103-113):
+    with ``u``, one uniform in [0, 1) per sample of axis 0, sample b keeps
+    its residual branch when u[b] < 1 - rate and is scaled by 1 / (1 -
+    rate); without ``u`` (inference) it is the identity. The JAX package
+    draws the same Bernoulli from its ``dropout`` stream; the port takes
+    the uniforms from the train step's generator."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor,
+                u: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.rate == 0.0 or u is None:
+            return x
+        keep = 1.0 - self.rate
+        mask = (u < keep).to(x.dtype).view(-1, *(1,) * (x.dim() - 1))
+        return x * mask / keep
+
+
 def get_norm(norm: str, num_features: int) -> Optional[nn.Module]:
     if norm in (None, "", "none"):
         return None
@@ -128,10 +164,10 @@ def get_norm(norm: str, num_features: int) -> Optional[nn.Module]:
 
 
 def feature_strides(names):
-    """Stride of each named feature map of the ResNet FPN trunk
-    (lgd_tpu/models/layers.py:127): res<l> and p<l> at 2 ** l. ``cfg`` is
-    the JAX package's signature; the dilated res5 and the Swin stages are
-    not ported."""
+    """Stride of each named feature map (lgd_tpu/models/layers.py:127):
+    res<l>, stage<l> (Swin) and p<l> at 2 ** l. The JAX package's ``cfg``
+    argument, which it reads for the dilated res5 of the C4 variants, is
+    left out until those variants are ported."""
     return [2 ** int(n[-1]) for n in names]
 
 

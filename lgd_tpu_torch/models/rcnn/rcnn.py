@@ -21,8 +21,7 @@ import torch
 import torch.nn as nn
 
 from ...structures import BatchedDetections, BatchedInstances
-from ..backbones.fpn import build_fpn
-from ..backbones.resnet import build_resnet
+from ..backbones.fpn import bottom_up_features, build_trunk
 from ..heads.retinanet import AnchorCache
 from ..layers import feature_strides, normalize_images
 from .roi_heads import (
@@ -44,24 +43,24 @@ from .rpn import (
 
 
 class RCNNCT(nn.Module):
-    """Decomposed Faster R-CNN student on a ResNet FPN trunk with the
-    max-pool p6 (detectron2 Base-RCNN-FPN)."""
+    """Decomposed Faster or Mask R-CNN student on a ResNet or Swin-T FPN
+    trunk with the max-pool p6 (detectron2 Base-RCNN-FPN; the reference's
+    build_swint_fpn_backbone)."""
 
     def __init__(self, cfg, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         name = cfg.MODEL.BACKBONE.NAME
-        if "fpn" not in name or "swint" in name:
+        if "fpn" not in name:
             raise NotImplementedError(
-                f"R-CNN trunk {name!r}: the port has the ResNet FPN trunk; "
-                "C4 and DilatedC5 come with ROADMAP.md port queue item 10, "
-                "Swin-T with item 11")
+                f"R-CNN trunk {name!r}: the port has the ResNet and Swin-T "
+                "FPN trunks; C4 and DilatedC5 come with ROADMAP.md port "
+                "queue item 10")
         if cfg.MODEL.ROI_HEADS.NAME != "StandardROIHeads":
             raise NotImplementedError(
                 f"ROI heads {cfg.MODEL.ROI_HEADS.NAME!r} come with the C4 "
                 "variants (ROADMAP.md, port queue item 10)")
         self.cfg = cfg
-        self.bottom_up = build_resnet(cfg, dtype=dtype)
-        self.fpn = build_fpn(cfg, "maxpool", dtype)
+        self.bottom_up, self.fpn = build_trunk(cfg, "maxpool", dtype)
         out_channels = cfg.MODEL.FPN.OUT_CHANNELS
         self.rpn = RPN(cfg, out_channels, dtype=dtype)
         self.roi_heads = StandardROIHeads(cfg, out_channels, dtype=dtype)
@@ -76,9 +75,13 @@ class RCNNCT(nn.Module):
         return normalize_images(images, image_sizes, self.pixel_mean,
                                 self.pixel_std)
 
-    def forward(self, images: torch.Tensor, image_sizes: torch.Tensor):
-        """-> (raw bottom-up features, FPN features p2-p6), both dicts."""
-        raw = self.bottom_up(self.normalize(images, image_sizes))
+    def forward(self, images: torch.Tensor, image_sizes: torch.Tensor,
+                drop_path=None):
+        """-> (raw bottom-up features, FPN features p2-p6), both dicts;
+        ``drop_path``: a Swin trunk's drop-path uniforms in training."""
+        raw = bottom_up_features(self.bottom_up,
+                                 self.normalize(images, image_sizes),
+                                 drop_path)
         return raw, self.fpn(raw)
 
     def _padded_hw(self, feats: Dict[str, torch.Tensor]):

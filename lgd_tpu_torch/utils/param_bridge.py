@@ -16,6 +16,16 @@ name, and only the leaves change:
   array) -> ``....scale``;
 - ``frozen/.../{scale,bias,mean,var}`` -> the FrozenBatchNorm buffers.
 
+The Swin trunk's leaves:
+
+- ``params/.../scale`` of a LayerNorm (``norm1``, ``norm2``, ``norm``,
+  ``patch_norm``, ``stage<s>_norm``) -> ``....weight``;
+- the Dense kernels (``qkv``, ``proj``, ``mlp_fc1``, ``mlp_fc2``,
+  ``reduction``) transposed as above, the patch embed's HWIO kernel to
+  OIHW;
+- ``relative_position_bias_table`` as it is;
+- ``absolute_pos_embed`` (1, H, W, C) -> the port's (1, C, H, W).
+
 A transposed convolution's kernel, the Mask R-CNN head's ``deconv``
 (flax ``nn.ConvTranspose``, (kh, kw, in, out)), goes to torch's (in, out,
 kh, kw) flipped in both spatial axes: flax's transpose_kernel=False
@@ -33,12 +43,15 @@ both sides: a key left over raises.
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 _FROZEN_LEAVES = ("scale", "bias", "mean", "var")
+_AS_IS_LEAVES = ("relative_position_bias_table", "absolute_pos_embed")
+_LAYER_NORM = re.compile(r"^(norm\d?|patch_norm|stage\d_norm)$")
 
 
 def flatten_variables(variables: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -57,10 +70,13 @@ def flatten_variables(variables: Mapping, prefix: str = "") -> Dict[str, np.ndar
 def torch_key(flax_key: str) -> str:
     """``params/student/fpn/top_p6/kernel`` -> ``student.fpn.top_p6.weight``;
     a ResNet norm's GroupNorm, flax's ``<norm>/GroupNorm_0``, is the port's
-    ``<norm>`` itself."""
+    ``<norm>`` itself; a LayerNorm's ``scale`` is its ``weight``."""
     coll, *path, leaf = flax_key.split("/")
-    if coll == "params" and leaf in ("kernel", "bias", "scale"):
-        leaf = "weight" if leaf == "kernel" else leaf
+    if coll == "params" and leaf in ("kernel", "bias", "scale",
+                                     *_AS_IS_LEAVES):
+        if leaf == "kernel" or (leaf == "scale" and path
+                                and _LAYER_NORM.match(path[-1])):
+            leaf = "weight"
     elif not (coll == "frozen" and leaf in _FROZEN_LEAVES):
         raise KeyError(f"no port counterpart for {flax_key!r}")
     return ".".join([p for p in path if p != "GroupNorm_0"] + [leaf])
@@ -74,6 +90,8 @@ def _kernel_axes(flax_key: str, ndim: int):
     """The transpose that takes a flax kernel to the torch weight."""
     if _transposed_conv(flax_key) and ndim == 4:
         return (2, 3, 0, 1)
+    if flax_key.endswith("/absolute_pos_embed"):
+        return (0, 3, 1, 2)
     if flax_key.endswith("/kernel"):
         return {4: (3, 2, 0, 1), 2: (1, 0)}.get(ndim)
     return None

@@ -1,5 +1,6 @@
 """Pretrained backbone import (port of lgd_tpu/utils/weight_convert.py):
-a detectron2 pickle or a torch file into the student's ``bottom_up``.
+a detectron2 pickle, or a torch file of a ResNet or a Swin, into the
+student's ``bottom_up``.
 
 The cold start of DetectionCheckpointer (reference train.py:159-161
 loading ``detectron2://ImageNetPretrained/MSRA/R-50.pkl``). It reads:
@@ -8,9 +9,11 @@ loading ``detectron2://ImageNetPretrained/MSRA/R-50.pkl``). It reads:
   with detectron2 names (``backbone.bottom_up.res2.0.conv1.weight``) or
   Caffe2 names (``res2_0_branch2a_w``), as the MSRA ImageNet files have;
 - torch files of such a dict (``{"model": ...}``, ``{"state_dict": ...}``
-  or flat).
+  or flat);
+- torch files of an official or timm Swin (routed by their
+  ``relative_position_bias_table``), ``convert_swin_state``.
 
-The names are mapped as the JAX converter maps them onto its module tree
+A ResNet's names are mapped as the JAX converter maps them onto its module tree
 (``res2_0/conv1/kernel``, ``res2_0/conv1_norm/scale``, ...), and each of
 those onto the port's state_dict by the param bridge's own key rule
 (``student.bottom_up.res2_0.conv1.weight``). Convolution weights stay OIHW,
@@ -113,6 +116,46 @@ def convert_resnet_state(raw: Dict[str, np.ndarray]) -> Dict[str, Dict]:
             for coll, tree in (("params", params), ("frozen", frozen))}
 
 
+def convert_swin_state(raw: Dict[str, np.ndarray]) -> Dict[str, Dict]:
+    """An official or timm Swin state dict (the reference's
+    ``swin_tiny_patch4_window7_224_converted.pth``) -> {"params": {...},
+    "frozen": {}}, keyed by the port's state_dict names
+    (``student.bottom_up.stage2_block0.attn.qkv.weight``), float32
+    (JAX lgd_tpu/utils/weight_convert.py:129-188). The layouts are torch's
+    on both sides: linear weights (out, in), the patch embed OIHW, the
+    position embedding (1, C, H, W). Buffers (``relative_position_index``,
+    ``attn_mask``) and the classifier are left out."""
+    params = {}
+
+    def put(name, v):
+        params["student.bottom_up." + name] = np.asarray(v, np.float32)
+
+    for k, v in raw.items():
+        parts = k.replace("backbone.", "").split(".")
+        if parts[0] == "absolute_pos_embed":
+            put("absolute_pos_embed", v)
+        elif parts[0] == "patch_embed" and len(parts) == 3:
+            put(f"{'patch_embed' if parts[1] == 'proj' else 'patch_norm'}."
+                f"{parts[2]}", v)
+        elif parts[0] == "layers" and parts[2] == "blocks":
+            blk = f"stage{int(parts[1]) + 2}_block{parts[3]}"
+            rest = parts[4:]
+            if rest[0] in ("norm1", "norm2"):
+                put(f"{blk}.{rest[0]}.{rest[1]}", v)
+            elif rest[0] == "attn" and rest[1] in (
+                    "relative_position_bias_table", "qkv", "proj"):
+                put(".".join([blk, *rest]), v)
+            elif rest[0] == "mlp":
+                put(f"{blk}.mlp_{rest[1]}.{rest[2]}", v)
+        elif parts[0] == "layers" and parts[2] == "downsample":
+            put(f"stage{int(parts[1]) + 2}_downsample.{parts[3]}.{parts[4]}",
+                v)
+        elif parts[0].startswith("norm") and len(parts[0]) > 4:
+            # the out-feature norms: norm0..norm3 -> stage2_norm..stage5_norm
+            put(f"stage{int(parts[0][4:]) + 2}_norm.{parts[1]}", v)
+    return {"params": params, "frozen": {}}
+
+
 def _merge_into(model: torch.nn.Module, tensors: Dict[str, np.ndarray]):
     """Copy each tensor whose name and shape the model has; returns
     (copied, unmatched), a shape mismatch warned and counted as unmatched."""
@@ -154,11 +197,8 @@ def maybe_load_pretrained(cfg, model: torch.nn.Module) -> torch.nn.Module:
                        cfg.MODEL.WEIGHTS)
         return model
     raw = _load_raw(path)
-    if any("relative_position_bias_table" in k for k in raw):
-        raise NotImplementedError(
-            "Swin backbone weights (the JAX package's convert_swin_state) "
-            "wait for the Swin-T backbone (ROADMAP.md, port queue item 11)")
-    conv = convert_resnet_state(raw)
+    is_swin = any("relative_position_bias_table" in k for k in raw)
+    conv = convert_swin_state(raw) if is_swin else convert_resnet_state(raw)
     ok_p, miss_p = _merge_into(model, conv["params"])
     ok_f, miss_f = _merge_into(model, conv["frozen"])
     logger.info("Loaded pretrained: %d param tensors, %d frozen stats "

@@ -351,10 +351,23 @@ def test_a_missing_detectron2_file_warns_and_trains_from_random_init(
 
 
 def test_a_swin_pickle_raises_naming_its_queue_item(tmp_path):
+    """A Swin pickle, which its bias tables name, raised until the Swin-T
+    trunk was ported (ROADMAP item 11); now ``maybe_load_pretrained``
+    routes it through ``convert_swin_state`` into the student's trunk."""
     path = str(tmp_path / "swin.pkl")
+    table = np.arange(169, dtype=np.float32).reshape(169, 1)
     with open(path, "wb") as f:
         pickle.dump({"layers.0.blocks.0.attn.relative_position_bias_table":
-                     np.zeros((169, 3), np.float32)}, f)
-    cfg = retinanet_cfg(opts=["MODEL.WEIGHTS", path])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        weight_convert.maybe_load_pretrained(cfg, torch.nn.Linear(1, 1))
+                     table}, f)
+    stages = ["stage3", "stage4", "stage5"]
+    cfg = retinanet_cfg(opts=[
+        "MODEL.WEIGHTS", path,
+        "MODEL.BACKBONE.NAME", "build_retinanet_swint_fpn_backbone",
+        "MODEL.SWINT.EMBED_DIM", 24, "MODEL.SWINT.DEPTHS", [2, 2, 2, 2],
+        "MODEL.SWINT.NUM_HEADS", [1, 2, 3, 6],
+        "MODEL.SWINT.OUT_FEATURES", stages, "MODEL.FPN.IN_FEATURES", stages])
+    model = build_model(cfg, dtype=torch.float32, device="cpu", seed=0)
+    weight_convert.maybe_load_pretrained(cfg, model)
+    got = model.state_dict()[
+        "student.bottom_up.stage2_block0.attn.relative_position_bias_table"]
+    np.testing.assert_array_equal(got.numpy(), table)
